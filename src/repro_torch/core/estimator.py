@@ -1,0 +1,117 @@
+"""The performance estimator feeding the resource allocator (paper §IV
+step 2) — the DaCapo half of the JAX package's ``core/estimator.py``.
+
+``DaCapoEstimator`` models the paper's accelerator: an R x 16 array of
+DPEs at 500 MHz, each computing one 16-wide dot product in 1 (MX4) / 4
+(MX6) / 16 (MX9) cycles (§V-B), with output-stationary tiling and pipeline
+fill. Its seconds drive the session's virtual clock; the arithmetic is the
+reference's, float for float.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Tuple
+
+from repro_torch.configs.dacapo_pairs import VisionConfig
+from repro_torch.models.resnet import block_plan
+
+MX_CYCLES = {"mx4": 1, "mx6": 4, "mx9": 16}
+
+
+def vision_gemms(cfg: VisionConfig,
+                 batch: int = 1) -> List[Tuple[int, int, int]]:
+    """(M, N, K) GEMM list for one forward pass (convs via im2col)."""
+    gemms: List[Tuple[int, int, int]] = []
+    if cfg.kind == "vit":
+        n = (cfg.img_size // cfg.patch) ** 2 + 1
+        d, f = cfg.d_model, cfg.d_ff
+        gemms.append((batch * n, d, cfg.patch * cfg.patch * 3))
+        for _ in range(cfg.num_layers):
+            gemms.append((batch * n, 3 * d, d))
+            gemms.append((batch * n, n, d))  # QK^T (per-head K folded)
+            gemms.append((batch * n, d, n))  # AV
+            gemms.append((batch * n, d, d))
+            gemms.append((batch * n, f, d))
+            gemms.append((batch * n, d, f))
+        gemms.append((batch, cfg.num_classes, d))
+        return gemms
+    # ResNet.
+    h = w = cfg.img_size
+    stem_k = 7 if cfg.img_size > 64 else 3
+    stride0 = 2 if cfg.img_size > 64 else 1
+    h, w = h // stride0, w // stride0
+    gemms.append((batch * h * w, 64, stem_k * stem_k * 3))
+    if cfg.img_size > 64:
+        h, w = h // 2, w // 2
+    for kind, cin, mid, cout, stride in block_plan(cfg):
+        h2, w2 = h // stride, w // stride
+        if kind == "basic":
+            gemms.append((batch * h2 * w2, mid, 9 * cin))
+            gemms.append((batch * h2 * w2, cout, 9 * mid))
+        else:
+            gemms.append((batch * h * w, mid, cin))
+            gemms.append((batch * h2 * w2, mid, 9 * mid))
+            gemms.append((batch * h2 * w2, cout, mid))
+        if stride != 1 or cin != cout:
+            gemms.append((batch * h2 * w2, cout, cin))
+        h, w = h2, w2
+    gemms.append((batch, cfg.num_classes, block_plan(cfg)[-1][3]))
+    return gemms
+
+
+@dataclasses.dataclass(frozen=True)
+class DaCapoEstimator:
+    """Cycle-level model of the paper's 16x16 DPE prototype (Table IV)."""
+
+    total_rows: int = 16
+    cols: int = 16
+    dot_width: int = 16
+    freq_hz: float = 500e6
+
+    def gemm_cycles(self, m: int, n: int, k: int, rows: int,
+                    precision: str) -> float:
+        """Output-stationary: tiles of rows x cols outputs; each output needs
+        ceil(K/16) dot-steps at MX_CYCLES each; + pipeline fill per tile."""
+        cyc_per_dot = MX_CYCLES[precision]
+        k_steps = math.ceil(k / self.dot_width)
+        tiles = math.ceil(m / rows) * math.ceil(n / self.cols)
+        fill = rows + self.cols
+        return tiles * (k_steps * cyc_per_dot + fill)
+
+    def forward_time(self, cfg: VisionConfig, rows: int, precision: str,
+                     batch: int = 1) -> float:
+        cycles = sum(self.gemm_cycles(m, n, k, rows, precision)
+                     for m, n, k in vision_gemms(cfg, batch))
+        return cycles / self.freq_hz
+
+    def train_step_time(self, cfg: VisionConfig, rows: int, precision: str,
+                        batch: int) -> float:
+        # fwd + 2 backward GEMMs per forward GEMM (dX and dW).
+        return 3.0 * self.forward_time(cfg, rows, precision, batch)
+
+    def inference_fps(self, cfg: VisionConfig, rows: int,
+                      precision: str) -> float:
+        return 1.0 / self.forward_time(cfg, rows, precision, batch=1)
+
+
+def spatial_allocation(estimator, student: VisionConfig, fps: float,
+                       precision: str) -> Tuple[int, int]:
+    """GetSpatialAllocation (Alg. 1 line 1): minimum B-SA rows sustaining the
+    input frame rate for student inference; the rest go to T-SA.
+
+    Always returns (R_tsa, R_bsa) with R_tsa + R_bsa == total_rows. When no
+    proper split sustains the frame rate, rows == total is considered before
+    falling back: if the whole array is needed (or it is a single-row array),
+    B-SA takes every row and T-SA time-shares (R_tsa = 0, the paper's R=0
+    fallback); only when even the full array misses the frame rate does one
+    row stay with T-SA so retraining is never starved entirely.
+    """
+    total = estimator.total_rows
+    for rows in range(1, total):
+        if estimator.inference_fps(student, rows, precision) >= fps:
+            return total - rows, rows  # (R_tsa, R_bsa)
+    if total == 1 or estimator.inference_fps(student, total,
+                                             precision) >= fps:
+        return 0, total  # whole array to inference; T-SA time-shares
+    return 1, total - 1  # overloaded even at full width
