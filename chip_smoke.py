@@ -8,8 +8,8 @@ exits non-zero without printing a result:
 
 1. device  — a CUDA card must be present; prints its name and
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build   — compiles the hand-written MX kernels (``nvcc``, sm_90a) from
-   the checkout's sources.
+2. build   — compiles every hand-written kernel (one ``nvcc`` call,
+   sm_90a) from the checkout's sources.
 3. kernels — holds ``mx_quantize`` / ``mx_dequantize`` against their plain
    PyTorch versions on the card, bitwise, for mx4/mx6/mx9 over every
    quantized leaf shape of full-width ResNet18 and WideResNet50, an odd K
@@ -25,6 +25,19 @@ exits non-zero without printing a result:
    configs (224 px, 1000 classes, random weights), MX6 serving copies
    filled through the kernels and checked bitwise against the plain
    version on the card, then a 32-frame batch served by each.
+6. gemm    — the MX GEMM kernels on full-width ResNet18's 21 GEMMs at
+   batch 32 (``vision_gemms``; the real weights of phase 3's tree as
+   [K, N], N(0,1) activations and cotangents): MX9 training through
+   ``mx_dense`` (forward and backward), MX6 serving through
+   ``mx_quantize_rhs`` + ``mx_dense_prequant``, and the unfused
+   ``ops.mx_matmul``; 21 launches of each GEMM kernel per pass, all
+   served by "cuda"; the bitwise contracts fused = unfused = prequant and
+   pair = two fused; every kernel within the worst summation-order limit
+   2·Kp·2⁻²⁴·(|A_q| @ |B_q|) and the typical limit
+   4·sqrt(Kp)·2⁻²⁴·sqrt(A_q² @ B_q²) of its plain version, on every GEMM
+   and on ragged and zero-block shapes, with an all-zero dW and a dW of g
+   quantized along the wrong axis shown to fail the typical limit at
+   every GEMM; times at the largest GEMM and of whole passes.
 
 Before the last line it prints the card's ``nvidia-smi`` line and one JSON
 object describing each kernel; the last line is
@@ -41,6 +54,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 REPLACES = "src/repro/kernels/mx_quantize.py:39"  # Pallas _quantize_kernel
 REPLACES_DEQ = "src/repro/kernels/ref.py:67"  # mx_dequantize_ref (jnp)
 SOURCE = "src/repro_torch/kernels/csrc/mx_quantize.cu"
@@ -50,12 +65,377 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+def time_ms(fn, iters: int = 15) -> float:
+    """Median per-call device time, L2 flushed before each call (a
+    serving-copy fill finds the weights cold). A spin kernel ahead of the
+    start event lets the host enqueue the call before the device reaches
+    it, so host-side launch overhead stays out of the time."""
+    import numpy as np
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def pass_ms(fns, reps: int = 3) -> float:
+    """Median over ``reps`` of the summed device time of the calls in
+    ``fns``, run back to back once the L2 is flushed (each call between
+    its own pair of events, behind one spin kernel long enough for the
+    host to enqueue them all)."""
+    import numpy as np
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    sums = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(50_000_000)
+        events = []
+        for fn in fns:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        sums.append(sum(a.elapsed_time(b) for a, b in events))
+    return float(np.median(sums))
+
+
+def same_q(qa, qb) -> bool:
+    import torch
+
+    return (torch.equal(qa.mantissa, qb.mantissa)
+            and torch.equal(qa.exponent, qb.exponent)
+            and torch.equal(qa.mx_bits, qb.mx_bits))
+
+
+def bitwise(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
+GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
+    "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
+    "mx_matmul_fused": "src/repro/kernels/mx_fused.py:102",
+    "mx_matmul_bwd_pair": "src/repro/kernels/mx_fused.py:189",
+    "mx_matmul_prequant": "src/repro/kernels/mx_fused.py:301",
+}
+
+
+def gemm_weights(params):
+    """The weights of a ResNet tree in ``vision_gemms`` order (stem; per
+    block conv1, conv2 and the projection; head), each reshaped HWIO ->
+    [kh*kw*cin, cout] = [K, N]."""
+    ws = [params["stem"]]
+    for bp in params["blocks"]:
+        ws += [bp[key] for key in ("conv1", "conv2", "conv3", "proj")
+               if key in bp]
+    ws.append(params["head_w"])
+    return [w.reshape(-1, w.shape[-1]) for w in ws]
+
+
+def gemm_bound_ms(name: str, m: int, n: int, k: int):
+    """(bound ms, "bytes" or "operations") of one GEMM kernel call: fp32
+    operands at 4 bytes an element, stored MX operands at 1 + 2/16, each
+    output once; operations over the bf16 tensor-core rate."""
+    kp = -(-k // 16) * 16
+    mx = 1 + 2 / 16
+    flops = (4 if name == "mx_matmul_bwd_pair" else 2) * m * n * k
+    nbytes = {
+        "mx_matmul": mx * (m * kp + kp * n) + 4 * m * n,
+        "mx_matmul_fused": 4 * (m * k + k * n + m * n),
+        "mx_matmul_bwd_pair": 4 * (m * n + 2 * m * k + 2 * k * n),
+        "mx_matmul_prequant": 4 * m * k + mx * kp * n + 4 * m * n,
+    }[name]
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def gemm_phase(cfg, params, batch: int, dev="cuda"):
+    """Phase 6: the MX GEMM kernels on ``cfg``'s GEMMs at ``batch``, with
+    the model's real weights. Drives MX9 training (``mx_dense`` forward and
+    backward), MX6 serving (``mx_quantize_rhs`` then
+    ``mx_dense_prequant``) and the unfused chain (``ops.mx_matmul``),
+    checks launches, dispatch, the bitwise contracts and every kernel
+    against its plain version, and times them. Returns the kernel rows."""
+    import torch
+
+    from repro_torch.core.estimator import vision_gemms
+    from repro_torch.core.mx import mx_dense, mx_dense_prequant
+    from repro_torch.kernels import mx_fused as mxf
+    from repro_torch.kernels import mx_matmul as mxm
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device(dev)
+    gemms = vision_gemms(cfg, batch=batch)
+    ws = gemm_weights(params)
+    if [tuple(w.shape) for w in ws] != [(k, n) for _, n, k in gemms]:
+        raise AssertionError("weights do not match vision_gemms")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    acts = [torch.randn((m, k), generator=gen, device=dev)
+            for m, _, k in gemms]
+    cots = [torch.randn((m, n), generator=gen, device=dev)
+            for m, n, _ in gemms]
+    count = len(gemms)
+
+    def expect(launches: dict, what: str) -> None:
+        """Exactly ``launches`` on every counter, all served by "cuda"."""
+        got = mxq.launch_counts()
+        want = {name: launches.get(name, 0) for name in got}
+        stats = ops.kernel_stats()
+        want_stats = {op: {"cuda": n} for op, n in launches.items()}
+        if got != want or stats != want_stats:
+            raise AssertionError(f"{what}: launches {got}, kernel_stats "
+                                 f"{stats}; expected {want_stats}")
+        log("gemm", f"{what}: launches {launches}, all served by cuda")
+
+    def reset() -> None:
+        mxq.reset_launch_counts()
+        ops.reset_kernel_stats()
+
+    def mx9_training_pass():
+        """y = mx_dense(a, w) and y.backward(g) for every GEMM; returns
+        (y, dx, dw) per GEMM and the host wall seconds."""
+        t0 = time.perf_counter()
+        out = []
+        for a, w, g in zip(acts, ws, cots):
+            a_t = a.detach().requires_grad_(True)
+            w_t = w.detach().requires_grad_(True)
+            y = mx_dense(a_t, w_t, "mx9", "mx9")
+            y.backward(g)
+            out.append((y.detach(), a_t.grad, w_t.grad))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 1. Training at MX9: one fused launch and one pair launch per GEMM.
+    reset()
+    train, train_wall = mx9_training_pass()
+    expect({"mx_matmul_fused": count, "mx_matmul_bwd_pair": count},
+           f"MX9 training pass ({train_wall:.3f} s host wall, first pass)")
+    launches = {"mx_matmul_fused": count, "mx_matmul_bwd_pair": count}
+
+    # 2. Serving at MX6 against resident weights.
+    reset()
+    qws = [ops.mx_quantize_rhs(w, "mx6") for w in ws]
+    serve = [mx_dense_prequant(a, qw, "mx6") for a, qw in zip(acts, qws)]
+    torch.cuda.synchronize()
+    expect({"mx_quantize": count, "mx_matmul_prequant": count},
+           "MX6 serving pass")
+    launches["mx_matmul_prequant"] = count
+
+    # 3. The unfused chain.
+    reset()
+    unfused = [ops.mx_matmul(a, w, "mx6", "mx6") for a, w in zip(acts, ws)]
+    torch.cuda.synchronize()
+    expect({"mx_quantize": 2 * count, "mx_matmul": count}, "unfused chain")
+    launches["mx_matmul"] = count
+
+    # 4. Checks: the bitwise contracts, and each kernel within two limits
+    # of its plain version (dequantized operands, then a fp32 matmul with
+    # TF32 off): the worst summation-order limit 2·Kp·2^-24·(|A_q| @ |B_q|),
+    # and the typical limit 4·sqrt(Kp)·2^-24·sqrt(A_q² @ B_q²) for these
+    # zero-mean operands (ref.gemm_error_limits). Over the pair's long
+    # dW contractions only the typical limit fails a wrong output, which
+    # the controls below show at every GEMM.
+    max_err = {name: 0.0 for name in GEMM_REPLACES}
+    max_reading = {name: 0.0 for name in GEMM_REPLACES}  # err / typical
+    least_control = {}  # smallest control reading per wrong output
+    dw_readings = []  # per GEMM: the pair's dW and the two controls
+
+    def qd(x, precision):
+        return ref.mx_quant_dequant_ref(
+            ops._pad_last(x, ref.BLOCK)[0].contiguous(), precision)
+
+    def readings(out, plain, aq, bq_nk):
+        """|out - plain| and its largest ratio to the worst and to the
+        typical limit."""
+        worst, typical = ref.gemm_error_limits(aq, bq_nk)
+        err = (out - plain).abs()
+        tiny = torch.finfo(torch.float32).tiny
+        return (err, float((err / worst.clamp_min(tiny)).max()),
+                float((err / typical.clamp_min(tiny)).max()))
+
+    def within(name, what, out, plain, aq, bq_nk) -> float:
+        err, r_worst, r_typical = readings(out, plain, aq, bq_nk)
+        if (out.shape != plain.shape or not bool(torch.isfinite(out).all())
+                or not r_worst <= 1 or not r_typical <= 1):
+            raise AssertionError(
+                f"{name} {what}: kernel vs plain outside the limits (max "
+                f"err {float(err.max())}, {r_worst:.3g} x the worst and "
+                f"{r_typical:.3g} x the typical limit)")
+        max_err[name] = max(max_err[name], float(err.max()))
+        max_reading[name] = max(max_reading[name], r_typical)
+        return r_typical
+
+    def check_all(a, w, g, outs, what, tp="mx9", sp="mx6", qw=None,
+                  controls=False):
+        """One GEMM: the kernels' outputs ``outs`` = (fused at ``tp``, the
+        pair's dx and dw at ``tp``, prequant and unfused at ``sp``) vs
+        their plain versions, and the contracts fused = unfused =
+        prequant, pair = two fused. With ``controls``, an all-zero dW and
+        a dW of g quantized along N (the wrong axis) must fail the typical
+        limit."""
+        y_t, dx, dw, y_p, y_u = outs
+        (m, k), n = a.shape, w.shape[1]
+        ap, wp = ops._pad_last(a, 16)[0], ops._pad_rows(w, (-k) % 16)
+        within("mx_matmul_fused", what, y_t,
+               ref.mx_matmul_fused_ref(ap, wp, tp, tp), qd(a, tp),
+               qd(w.T, tp))
+        g1, pad_n = ops._pad_last(g, 16)
+        xt, pad_m = ops._pad_last(a.T, 16)
+        pdx, pdw = ref.mx_matmul_bwd_pair_ref(
+            g1, ops._pad_rows(w.T, pad_n), xt, ops._pad_rows(g, pad_m), tp)
+        within("mx_matmul_bwd_pair", what + " dx", dx, pdx, qd(g, tp),
+               qd(w, tp))
+        xq, gq = qd(a.T, tp), qd(g.T, tp)
+        r_dw = within("mx_matmul_bwd_pair", what + " dw", dw, pdw, xq, gq)
+        if controls:
+            wrong_axis = ref._matmul_nt(
+                xq, ops._pad_rows(qd(g, tp)[:, :n], pad_m).T)
+            seen = [f"M={m}: {r_dw:.3g}"]
+            for label, bad in (("zero", torch.zeros_like(dw)),
+                               ("axis", wrong_axis)):
+                _, r_worst, r_typical = readings(bad, pdw, xq, gq)
+                if not r_typical > 1:
+                    raise AssertionError(f"{what}: the typical limit passes "
+                                         f"a {label} dW ({r_typical:.3g})")
+                least_control[label] = min(
+                    least_control.get(label, float("inf")), r_typical)
+                seen.append(f"{label} {r_worst:.3g}w {r_typical:.3g}t")
+            dw_readings.append(" ".join(seen))
+        aq, bq = qd(a, sp), qd(w.T, sp)
+        qw = ops.mx_quantize_rhs(w, sp) if qw is None else qw
+        within("mx_matmul_prequant", what, y_p,
+               ref.mx_matmul_prequant_ref(ap, qw, sp), aq, bq)
+        within("mx_matmul", what, y_u, ref.mx_matmul_ref(
+            ref.mx_quantize_ref(ap, sp), ref.mx_quantize_ref(wp.T, sp)),
+            aq, bq)
+        f_s = (y_t if sp == tp
+               else mxf.mx_matmul_fused_cuda(a, w, sp, sp))
+        if not (bitwise(f_s, y_p) and bitwise(f_s, y_u)):
+            raise AssertionError(f"{what}: fused != prequant / unfused")
+        if not (bitwise(dx, mxf.mx_matmul_fused_cuda(g, w.T, tp, tp))
+                and bitwise(dw, mxf.mx_matmul_fused_cuda(a.T, g, tp, tp))):
+            raise AssertionError(f"{what}: pair != two fused")
+
+    for (m, n, k), a, w, g, (y9, dx, dw), y6_p, y6_u, qw in zip(
+            gemms, acts, ws, cots, train, serve, unfused, qws):
+        check_all(a, w, g, (y9, dx, dw, y6_p, y6_u), f"({m}, {n}, {k})",
+                  qw=qw, controls=True)
+    # Odd shapes: ragged M, N and K, and blocks of zeros (along K and N,
+    # and a zero row: zero blocks along M for dW); mx4 and mx6 too.
+    for m, n, k in ((5, 48, 33), (8, 128, 128)):
+        a = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev)
+        g = torch.randn((m, n), generator=gen, device=dev)
+        if m == 8:
+            a[:, 32:64], a[2], g[:, 32:64], g[3] = 0.0, 0.0, 0.0, 0.0
+        for prec in ("mx4", "mx6", "mx9"):
+            qb = ops.mx_quantize_rhs(w, prec)
+            outs = (mxf.mx_matmul_fused_cuda(a, w, prec, prec),
+                    *mxf.mx_matmul_bwd_pair_cuda(g, a, w, prec),
+                    mxf.mx_matmul_prequant_cuda(a, qb, prec),
+                    mxm.mx_matmul_cuda(ops.mx_quantize(a, prec), qb))
+            check_all(a, w, g, outs, f"({m}, {n}, {k}) {prec}", prec, prec,
+                      qb)
+    torch.cuda.synchronize()
+    log("gemm", f"contracts bitwise (fused = unfused = prequant, pair = two "
+        f"fused) and every kernel within the worst and the typical limit of "
+        f"its plain version on all {count} GEMMs and the odd shapes; "
+        f"max_abs_err {max_err}; largest err / typical limit {max_reading}; "
+        f"smallest control reading (must be > 1) {least_control}")
+    log("gemm", "the pair's dW per GEMM, as err / typical limit, with the "
+        "all-zero and the wrong-axis control as err / worst limit (w) and "
+        "err / typical limit (t): " + "; ".join(dw_readings))
+    del train, serve, unfused
+
+    # 5. Times at the largest GEMM by operations, and of whole passes.
+    big = max(range(count), key=lambda i: gemms[i][0] * gemms[i][1]
+              * gemms[i][2])
+    (m, n, k), a, w, g = gemms[big], acts[big], ws[big], cots[big]
+    ap, wp = ops._pad_last(a, 16)[0], ops._pad_rows(w, (-k) % 16)
+    qa6, qw6 = ops.mx_quantize(a, "mx6"), qws[big]
+    g1, pad_n = ops._pad_last(g, 16)
+    xt, pad_m = ops._pad_last(a.T, 16)
+    wtp, g2 = ops._pad_rows(w.T, pad_n), ops._pad_rows(g, pad_m)
+    qa6_ref, qwt6_ref = ref.mx_quantize_ref(ap, "mx6"), ref.mx_quantize_ref(
+        wp.T, "mx6")
+    timed = {
+        "mx_matmul": (lambda: mxm.mx_matmul_cuda(qa6, qw6),
+                      lambda: ref.mx_matmul_ref(qa6_ref, qwt6_ref), "mx6"),
+        "mx_matmul_fused": (
+            lambda: mxf.mx_matmul_fused_cuda(a, w, "mx9", "mx9"),
+            lambda: ref.mx_matmul_fused_ref(ap, wp, "mx9", "mx9"), "mx9"),
+        "mx_matmul_bwd_pair": (
+            lambda: mxf.mx_matmul_bwd_pair_cuda(g, a, w, "mx9"),
+            lambda: ref.mx_matmul_bwd_pair_ref(g1, wtp, xt, g2, "mx9"),
+            "mx9"),
+        "mx_matmul_prequant": (
+            lambda: mxf.mx_matmul_prequant_cuda(a, qw6, "mx6"),
+            lambda: ref.mx_matmul_prequant_ref(ap, qw6, "mx6"), "mx6"),
+    }
+    rows = []
+    for name, (kernel, plain, prec) in timed.items():
+        bound_ms, bound_by = gemm_bound_ms(name, m, n, k)
+        row = {"name": name, "route": "cuda", "source": GEMM_SOURCE,
+               "replaces": GEMM_REPLACES[name], "launches": launches[name],
+               "max_abs_err": max_err[name], "ms": time_ms(kernel),
+               "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None,
+               "shape_mnk": [m, n, k], "precision": prec,
+               "max_typical_reading": max_reading[name]}
+        rows.append(row)
+        log("gemm", "{name} {precision} at (M, N, K) = {shape_mnk}: "
+            "{ms:.4f} ms (plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
+            "({bound_by})".format(**row))
+    train_ms = pass_ms(
+        [fn for a, w, g in zip(acts, ws, cots) for fn in (
+            lambda a=a, w=w: mxf.mx_matmul_fused_cuda(a, w, "mx9", "mx9"),
+            lambda a=a, w=w, g=g: mxf.mx_matmul_bwd_pair_cuda(g, a, w,
+                                                              "mx9"))])
+    fwd_ms = pass_ms([lambda a=a, w=w: mxf.mx_matmul_fused_cuda(
+        a, w, "mx9", "mx9") for a, w in zip(acts, ws)])
+    serve_ms = pass_ms([lambda a=a, qw=qw: mxf.mx_matmul_prequant_cuda(
+        a, qw, "mx6") for a, qw in zip(acts, qws)])
+    flops = sum(2 * m * n * k for m, n, k in gemms)
+    log("gemm", f"summed device time: MX9 training pass ({count} fused + "
+        f"{count} pair launches) {train_ms:.4f} ms, of which the {count} "
+        f"forward launches {fwd_ms:.4f} ms; MX6 serving pass ({count} "
+        f"prequant launches) {serve_ms:.4f} ms; {flops / 1e9:.2f} GFLOP per "
+        "forward")
+    walls = [mx9_training_pass()[1] for _ in range(3)]
+    log("gemm", "MX9 training pass through mx_dense and autograd, host wall "
+        f"of three warm passes: {[round(t, 4) for t in walls]} s")
+    for row in rows:
+        row.update(train_pass_ms=train_ms, serve_pass_ms=serve_ms)
+    return rows
 
 
 def main() -> None:
@@ -88,43 +468,14 @@ def main() -> None:
     # ------------------------------------------------------------- 2 build
     t0 = time.perf_counter()
     lib = mxq.build()
-    log("build", f"nvcc sm_90a -> {lib.name} in "
+    log("build", f"one nvcc call, sm_90a, {[p.name for p in mxq.sources()]} "
+        f"-> {lib.name} in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log("build", "ptxas: " + line.strip())
 
     # ----------------------------------------------------------- 3 kernels
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-
-    def time_ms(fn, iters: int = 15) -> float:
-        """Median per-call device time, L2 flushed before each call (a
-        serving-copy fill finds the weights cold). A spin kernel ahead of
-        the start event lets the host enqueue the call before the device
-        reaches it, so host-side launch overhead stays out of the time."""
-        fn()
-        times = []
-        for _ in range(iters):
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
-
-    def same_q(qa, qb) -> bool:
-        return (torch.equal(qa.mantissa, qb.mantissa)
-                and torch.equal(qa.exponent, qb.exponent)
-                and torch.equal(qa.mx_bits, qb.mx_bits))
-
-    def bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
-        return torch.equal(a.contiguous().view(torch.int32),
-                           b.contiguous().view(torch.int32))
-
     gen = torch.Generator().manual_seed(0)
     full = {cfg.name: make_vision_model(cfg, dev).init(gen)
             for cfg in (RESNET18, WIDERESNET50)}
@@ -185,7 +536,6 @@ def main() -> None:
                 "{dq_plain_ms:.4f}), bound {bound_ms:.4f} ms".format(**row))
     log("kernels", f"bitwise equal to the plain version for mx4/mx6/mx9 over "
         f"{len(cases)} shapes (tolerance 0); max_abs_err {max_err}")
-    del flush
     biggest = max(timings, key=lambda r: r["shape"][0] * r["shape"][1])
 
     # ----------------------------------------------------------- 4 session
@@ -300,9 +650,14 @@ def main() -> None:
             f"({plain_fill_ms:.2f} ms plain), bitwise equal; "
             f"{fps:.1f} frames/s at batch 32")
     full_launches = mxq.launch_counts()
-    if min(full_launches.values()) < 1:
+    if min(full_launches[op] for op in ("mx_quantize", "mx_dequantize")) < 1:
         raise AssertionError(f"full-width launches {full_launches}")
     log("full", f"launches {full_launches}")
+
+    # -------------------------------------------------------------- 6 gemm
+    t0 = time.perf_counter()
+    gemm_rows = gemm_phase(RESNET18, full[RESNET18.name], 32)
+    log("gemm", f"phase done in {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     for name, ms, plain_ms, replaces in (
@@ -317,6 +672,7 @@ def main() -> None:
             "bound_ms": biggest["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": biggest["shape"],
             "precision": "mx6", "launches_full_width": full_launches[name]})
+    kernels += gemm_rows
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,11 @@ from repro_torch.core.kernel import (  # noqa: F401
     RetrainKernel,
     ServingParamsCache,
 )
-from repro_torch.core.mx import DEFAULT_POLICY, PrecisionPolicy  # noqa: F401
+from repro_torch.core.mx import (  # noqa: F401
+    DEFAULT_POLICY,
+    PrecisionPolicy,
+    mx_dense,
+)
 from repro_torch.core.partition import SpatialPartition  # noqa: F401
 from repro_torch.core.sample_buffer import SampleBuffer  # noqa: F401
 from repro_torch.core.session import (  # noqa: F401

@@ -113,6 +113,16 @@ class ServingParamsCache:
                 slot.value = mx_lib.dequantize_tree_mx(slot.quantized)
             return slot.value
 
+    def get_quantized(self, params, precision: str):
+        """The RESIDENT copy — weight leaves as ``mx_lib.MXLeaf`` — for
+        consumers that feed quantized operands straight to the kernels."""
+        slot = self._claim(params, precision)
+        with slot.lock:
+            if slot.quantized is None:
+                self._count_fill()
+                slot.quantized = mx_lib.quantize_tree_mx(params, precision)
+            return slot.quantized
+
     def invalidate(self, params=None) -> None:
         """Drop the entries of ``params`` — or everything when ``None``."""
         with self._lock:
@@ -191,6 +201,14 @@ class InferenceKernel(_PlacedKernel):
             return self.serving_cache.get(params, precision)
         return params
 
+    def serving_quantized(self, params, precision: str):
+        """The RESIDENT quantized serving copy (weight leaves as
+        ``mx_lib.MXLeaf``) — for weight-resident consumers that feed
+        ``ops.mx_matmul_prequant`` directly instead of ``model.apply``."""
+        if self.apply_mx:
+            return self.serving_cache.get_quantized(params, precision)
+        return params
+
     def predict_async(self, params, x) -> torch.Tensor:
         """Class ids as a device tensor — no host sync."""
         return torch.argmax(self._run_apply(params, x), -1)
@@ -254,6 +272,13 @@ class LabelingKernel(_PlacedKernel):
                      for i in range(0, len(x), microbatch)]
             return torch.cat(parts)
         return torch.argmax(self._run_apply(params, x), -1)
+
+    def serving_quantized(self, params, precision: str):
+        """The teacher's RESIDENT quantized copy (see
+        :meth:`InferenceKernel.serving_quantized`)."""
+        if self.apply_mx:
+            return self.serving_cache.get_quantized(params, precision)
+        return params
 
     def time_per_sample(self, rows: int, precision: str) -> float:
         return self.estimator.forward_time(self.full_cfg, rows, precision,

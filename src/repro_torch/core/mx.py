@@ -1,6 +1,15 @@
-"""MX precision for serving weights (the serving half of the JAX package's
+"""MX precision as a training and serving feature (the JAX package's
 ``core/mx.py``).
 
+* ``mx_dense`` — a matmul whose forward runs at a configurable MX precision
+  (MX6 for inference/labeling, MX9 for retraining, the paper's §IV
+  operating points) through the FUSED GEMM (``ops.mx_matmul_fused``), with
+  a straight-through backward through the BACKWARD PAIR
+  (``ops.mx_matmul_bwd_pair``): dX and dW from ONE launch.
+* ``mx_dense_prequant`` — weight-resident serving against a weight stored
+  once in rhs layout (``ops.mx_quantize_rhs``), through
+  ``ops.mx_matmul_prequant``; ``activation_quant`` — straight-through
+  activation fake-quant.
 * ``quantize_tree`` — fake-quant: fp32 trees carrying the MX rounding,
   consumed by the unmodified forward.
 * ``quantize_tree_mx`` / ``dequantize_tree_mx`` — the RESIDENT form: weight
@@ -9,7 +18,7 @@
   ``quantize_tree``'s output bit for bit. ``ServingParamsCache``
   (core/kernel.py) keeps these resident.
 
-Every leaf goes through ``kernels.ops``: on the card the hand-written MX
+Everything goes through ``kernels.ops``: on the card the hand-written MX
 kernels, on the CPU their plain versions. A leaf is flattened to
 ``[-1, shape[-1]]`` before quantizing, exactly as in the reference; since
 the port keeps conv weights in HWIO, blocks run along the output channel
@@ -18,6 +27,7 @@ as they do there.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -92,3 +102,57 @@ def dequantize_tree_mx(qtree):
     serving tree — bit-identical to ``quantize_tree`` on the source."""
     return tree_map(lambda p: _dequant_leaf(p) if isinstance(p, MXLeaf)
                     else p, qtree, is_leaf=lambda p: isinstance(p, MXLeaf))
+
+
+class _MXDense(torch.autograd.Function):
+    """``mx_dense``'s forward (one fused GEMM at ``fwd_prec``) and backward
+    (one backward-pair launch at ``bwd_prec``), as the reference's
+    ``custom_vjp`` (``_mx_dense_fwd`` / ``_mx_dense_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, fwd_prec, bwd_prec):
+        ctx.save_for_backward(x, w)
+        ctx.bwd_prec = bwd_prec
+        shape = x.shape
+        y = ops.mx_matmul_fused(x.reshape(-1, shape[-1]), w, fwd_prec,
+                                fwd_prec)
+        return y.reshape(*shape[:-1], w.shape[-1]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        shape = x.shape
+        g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)
+        # dX = g @ W^T ; dW = X^T @ g — ONE backward-pair launch.
+        dx, dw = ops.mx_matmul_bwd_pair(g2, x.reshape(-1, shape[-1]), w,
+                                        ctx.bwd_prec)
+        return dx.reshape(shape).to(x.dtype), dw.to(w.dtype), None, None
+
+
+def mx_dense(x: torch.Tensor, w: torch.Tensor, fwd_prec: str = "mx9",
+             bwd_prec: str = "mx9") -> torch.Tensor:
+    """x [..., K] @ w [K, N] with MX quantization of both operands, fused
+    into the GEMM. Differentiable: the backward quantizes the incoming
+    cotangent and the saved operands at ``bwd_prec`` (straight-through
+    estimator), the paper's MX9 retraining path (§V-C)."""
+    return _MXDense.apply(x, w, fwd_prec, bwd_prec)
+
+
+def mx_dense_prequant(x: torch.Tensor, qw: MXTensor,
+                      fwd_prec: str = "mx6") -> torch.Tensor:
+    """Weight-resident serving matmul: ``x [..., K]`` against a weight
+    already stored in rhs layout (``ops.mx_quantize_rhs(w, precision)``).
+    Bit-identical to ``mx_dense(x, w, fwd_prec, ...)``'s forward, with no
+    weight quantization per call. Serving only — no gradient."""
+    shape = x.shape
+    y = ops.mx_matmul_prequant(x.reshape(-1, shape[-1]), qw, fwd_prec)
+    return y.reshape(*shape[:-1], y.shape[-1]).to(x.dtype)
+
+
+def activation_quant(x: torch.Tensor,
+                     precision: Optional[str]) -> torch.Tensor:
+    """Straight-through activation fake-quant (identity gradient)."""
+    if precision is None:
+        return x
+    y = ops.mx_quant_dequant(x, precision)
+    return x + (y - x).detach()

@@ -1,0 +1,73 @@
+"""Wrapper of the hand-written CUDA GEMM over two stored MX tensors
+(``csrc/mx_gemm.cu::mx_gemm_mx``).
+
+``mx_matmul_cuda`` replaces the JAX package's Pallas TPU kernel
+``kernels/mx_matmul.py::mx_matmul`` (``_matmul_kernel``): the UNFUSED
+GEMM, whose operands were quantized by an earlier launch and are only
+dequantized in-tile. Its plain version is ``kernels/ref.py::mx_matmul_ref``;
+its bound and design are in the source's header. The build, the launch
+counters and the shared checks live in ``mx_quantize.py``.
+
+Only a CUDA tensor reaches this wrapper (``kernels/ops.py`` routes a CPU
+tensor to the plain version); it raises on anything it does not take and
+when the launch reports an error — there is no fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import mx_quantize as _mq
+from repro_torch.kernels.ref import BLOCK, MANTISSA_BITS, MXTensor
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def check_dims(*dims: int) -> None:
+    """The kernels take M, N and K as 32-bit ints."""
+    if max(dims) > INT32_MAX:
+        raise ValueError(f"GEMM dimension above 2**31 - 1: {dims}")
+
+
+def require_planes(q: MXTensor, rows: int, cols: int, what: str) -> None:
+    """Exponent (int8) and bits (uint8) planes of shape [rows, cols],
+    contiguous, on the mantissa's device."""
+    for plane, dtype, name in ((q.exponent, torch.int8, "exponent"),
+                               (q.mx_bits, torch.uint8, "mx_bits")):
+        if tuple(plane.shape) != (rows, cols):
+            raise ValueError(f"{what} {name}: expected {(rows, cols)}, got "
+                             f"{tuple(plane.shape)}")
+        _mq.require(plane, dtype, f"{what} {name}")
+        if plane.device != q.mantissa.device:
+            raise ValueError(f"{what}: planes and mantissa on different "
+                             "devices")
+
+
+def mx_matmul_cuda(lhs: MXTensor, rhs: MXTensor) -> torch.Tensor:
+    """``lhs`` [M, Kp] quantized along K (planes [M, Kp/16], K-last) @
+    ``rhs`` [Kp, N] quantized along K (planes [Kp/16, N], K-first) ->
+    fp32 [M, N] on the card."""
+    lm, rm = lhs.mantissa, rhs.mantissa
+    if lm.dim() != 2 or rm.dim() != 2 or lm.shape[1] != rm.shape[0]:
+        raise ValueError(f"expected lhs [M, Kp] and rhs [Kp, N], got "
+                         f"{tuple(lm.shape)} and {tuple(rm.shape)}")
+    (m, kp), n = lm.shape, rm.shape[1]
+    if kp % BLOCK:
+        raise ValueError(f"Kp = {kp} is not a multiple of {BLOCK}")
+    check_dims(m, n, kp)
+    _mq.require(lm, torch.int8, "mx_matmul_cuda lhs mantissa")
+    _mq.require(rm, torch.int8, "mx_matmul_cuda rhs mantissa")
+    if rm.device != lm.device:
+        raise ValueError("lhs and rhs on different devices")
+    require_planes(lhs, m, kp // BLOCK, "mx_matmul_cuda lhs")
+    require_planes(rhs, kp // BLOCK, n, "mx_matmul_cuda rhs")
+    out = torch.empty((m, n), dtype=torch.float32, device=lm.device)
+    lib = _mq.load()
+    code = _mq.launch(
+        lib.mx_gemm_mx, lm.device, lm.data_ptr(), lhs.exponent.data_ptr(),
+        lhs.mx_bits.data_ptr(), MANTISSA_BITS[lhs.precision], rm.data_ptr(),
+        rhs.exponent.data_ptr(), rhs.mx_bits.data_ptr(),
+        MANTISSA_BITS[rhs.precision], out.data_ptr(), m, n, kp)
+    _mq.check(lib, code, "mx_matmul")
+    if m * n:
+        _mq.count_launch("mx_matmul")
+    return out

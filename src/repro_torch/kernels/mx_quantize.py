@@ -7,9 +7,14 @@ memory-bound (5.125 bytes moved per element); the source's header gives
 the bound and the design. Their plain versions are
 ``kernels/ref.py::mx_quantize_ref`` / ``mx_dequantize_ref``.
 
-Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` into a
-shared library with a plain C interface, under ``_build/`` beside this
-file (ignored by git), keyed by the source's hash; ``ctypes`` loads it.
+Build: this module also builds the library every kernel of the port lives
+in. At first use, ONE ``nvcc`` call compiles every ``csrc/*.cu`` for
+``sm_90a`` into one shared library with a plain C interface, under
+``_build/`` beside this file (ignored by git), keyed by the hash of all
+sources and headers; ``ctypes`` loads it and ``load()`` binds every C
+function. The GEMM wrappers (``mx_matmul.py``, ``mx_fused.py``) launch
+through the same library and count their launches in the same counters.
+
 Only a CUDA tensor reaches these wrappers (``kernels/ops.py`` routes a CPU
 tensor to the plain version); they raise on anything they do not take,
 and raise when the launch reports an error — there is no fallback.
@@ -23,13 +28,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.kernels.ref import BLOCK, MANTISSA_BITS, MXTensor
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mx_quantize.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,7 +44,9 @@ _lib_lock = threading.Lock()
 
 # Launch counters: one per kernel, bumped exactly where the kernel is
 # launched. Shared by every caller in the process, hence the lock.
-_launches: Dict[str, int] = {"mx_quantize": 0, "mx_dequantize": 0}
+_launches: Dict[str, int] = {
+    "mx_quantize": 0, "mx_dequantize": 0, "mx_matmul": 0,
+    "mx_matmul_fused": 0, "mx_matmul_bwd_pair": 0, "mx_matmul_prequant": 0}
 _launch_lock = threading.Lock()
 
 
@@ -54,7 +61,7 @@ def reset_launch_counts() -> None:
             _launches[name] = 0
 
 
-def _count_launch(name: str) -> None:
+def count_launch(name: str) -> None:
     with _launch_lock:
         _launches[name] += 1
 
@@ -73,54 +80,85 @@ def _nvcc() -> str:
     return found
 
 
+def sources() -> List[Path]:
+    """The CUDA translation units, one library: every ``csrc/*.cu``."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"mx_quantize_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels (once per source hash) and return the library.
-    The compiler's resource report (``-Xptxas -v``) is kept beside it."""
+    """Compile every kernel in one ``nvcc`` call (once per hash of the
+    sources and headers) and return the library. The compiler's resource
+    report (``-Xptxas -v``) is kept beside it."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    srcs = [str(p) for p in sources()]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs],
                           capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {srcs}:\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
-def _load() -> ctypes.CDLL:
+# ctypes argument types of every C function of the library, by name.
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "mx_quantize_f32": [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _PTR],
+    "mx_dequantize_f32": [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _PTR],
+    "mx_gemm_mx": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _PTR, _I32, _PTR,
+                   _I32, _I32, _I32, _PTR],
+    "mx_gemm_fused": [_PTR, _I64, _I64, _I32, _PTR, _I64, _I64, _I32, _PTR,
+                      _I32, _I32, _I32, _PTR],
+    "mx_gemm_prequant": [_PTR, _I64, _I64, _I32, _PTR, _PTR, _PTR, _I32,
+                         _PTR, _I32, _I32, _I32, _PTR],
+    "mx_gemm_bwd_pair": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I32, _I32,
+                         _I32, _PTR],
+}
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built at first use, its functions bound."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.mx_quantize_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
-            lib.mx_quantize_f32.restype = i32
-            lib.mx_dequantize_f32.argtypes = [ptr, ptr, ptr, ptr, i64, i32,
-                                              ptr]
-            lib.mx_dequantize_f32.restype = i32
-            lib.mx_error_string.argtypes = [i32]
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _I32
+            lib.mx_error_string.argtypes = [_I32]
             lib.mx_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
-def _check(lib: ctypes.CDLL, code: int, name: str) -> None:
+def launch(fn, device: torch.device, *args) -> int:
+    """Call a library function with ``args`` and the current stream of
+    ``device``; returns its CUDA error code."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(lib: ctypes.CDLL, code: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
     if code != 0:
         msg = lib.mx_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
 
 
-def _require(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+def require(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -141,20 +179,18 @@ def mx_quantize_cuda(x: torch.Tensor, precision: str) -> MXTensor:
     if x.dtype in (torch.float16, torch.bfloat16):
         x = x.float()
     x = x.contiguous()
-    _require(x, torch.float32, "mx_quantize_cuda input")
+    require(x, torch.float32, "mx_quantize_cuda input")
     m, k = x.shape
     mant = torch.empty((m, k), dtype=torch.int8, device=x.device)
     expo = torch.empty((m, k // BLOCK), dtype=torch.int8, device=x.device)
     bits = torch.empty((m, k // BLOCK), dtype=torch.uint8, device=x.device)
-    lib = _load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.mx_quantize_f32(x.data_ptr(), mant.data_ptr(),
-                                   expo.data_ptr(), bits.data_ptr(),
-                                   m * (k // BLOCK), mb, stream)
-    _check(lib, code, "mx_quantize")
+    lib = load()
+    code = launch(lib.mx_quantize_f32, x.device, x.data_ptr(),
+                  mant.data_ptr(), expo.data_ptr(), bits.data_ptr(),
+                  m * (k // BLOCK), mb)
+    check(lib, code, "mx_quantize")
     if m * k:
-        _count_launch("mx_quantize")
+        count_launch("mx_quantize")
     return MXTensor(mant, expo, bits, precision)
 
 
@@ -168,20 +204,18 @@ def mx_dequantize_cuda(q: MXTensor) -> torch.Tensor:
     if expo.shape != (m, k // BLOCK) or bits.shape != (m, k // BLOCK):
         raise ValueError("exponent / bits must be [M, K/16]")
     mb = MANTISSA_BITS[q.precision]
-    _require(mant, torch.int8, "mx_dequantize_cuda mantissa")
+    require(mant, torch.int8, "mx_dequantize_cuda mantissa")
     expo, bits = expo.contiguous(), bits.contiguous()
     if expo.device != mant.device or bits.device != mant.device:
         raise ValueError("mantissa, exponent and bits must share a device")
     if expo.dtype != torch.int8 or bits.dtype != torch.uint8:
         raise ValueError("exponent must be int8 and bits uint8")
     out = torch.empty((m, k), dtype=torch.float32, device=mant.device)
-    lib = _load()
-    with torch.cuda.device(mant.device):
-        stream = torch.cuda.current_stream(mant.device).cuda_stream
-        code = lib.mx_dequantize_f32(mant.data_ptr(), expo.data_ptr(),
-                                     bits.data_ptr(), out.data_ptr(),
-                                     m * (k // BLOCK), mb, stream)
-    _check(lib, code, "mx_dequantize")
+    lib = load()
+    code = launch(lib.mx_dequantize_f32, mant.device, mant.data_ptr(),
+                  expo.data_ptr(), bits.data_ptr(), out.data_ptr(),
+                  m * (k // BLOCK), mb)
+    check(lib, code, "mx_dequantize")
     if m * k:
-        _count_launch("mx_dequantize")
+        count_launch("mx_dequantize")
     return out

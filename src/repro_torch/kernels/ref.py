@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (the MX half of the JAX
-package's ``kernels/ref.py``).
+"""Plain PyTorch versions of the port's kernels (the MX quantize and GEMM
+oracles of the JAX package's ``kernels/ref.py``).
 
 MX (micro-exponent block floating point), as in the paper's §V-B:
   - blocks of 16 address-adjacent values along the last axis share an
@@ -9,8 +9,9 @@ MX (micro-exponent block floating point), as in the paper's §V-B:
     mantissa bit);
   - mantissas are sign-magnitude with 2 (MX4), 4 (MX6) or 7 (MX9) bits.
 
-These functions are what the CUDA kernels (``kernels/csrc/mx_quantize.cu``)
-are held to, bitwise, and what ``kernels/ops.py`` serves for a CPU tensor.
+These functions are what the CUDA kernels (``kernels/csrc/*.cu``) are held
+to — the quantize and dequantize kernels bitwise, the GEMMs within fp32
+summation order — and what ``kernels/ops.py`` serves for a CPU tensor.
 They run on any device. Two choices pin the numerics down exactly:
 
 * Zero and fp32 denormal inputs both count as zero: exponent ``EXP_MIN``
@@ -31,6 +32,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.device import set_fp32_precision
 
 BLOCK = 16
 SUBBLOCK = 2
@@ -117,3 +120,85 @@ def mx_dequantize_ref(q: MXTensor) -> torch.Tensor:
 def mx_quant_dequant_ref(x: torch.Tensor, precision: str) -> torch.Tensor:
     """Fake-quant: the numerical effect of storing x in MX."""
     return mx_dequantize_ref(mx_quantize_ref(x, precision)).to(x.dtype)
+
+
+# ------------------------------------------------------------ MX GEMMs ---
+# The plain versions of the four GEMM kernels (csrc/mx_gemm.cu): quantize
+# with the functions above, dequantize, then ONE float32 matmul with TF32
+# off. Every GEMM goes through ``_matmul_nt`` on contiguous dequantized
+# operands, so two of these functions that quantize to the same operands
+# give the same bits: fused == unfused == prequant, and the pair == two
+# fused GEMMs, as in the reference. The kernels sum in another order; the
+# products of dequantized MX values are exact in fp32, so the two differ
+# only by summation order, within ``gemm_error_limits``.
+
+
+def _matmul_nt(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [N, K]^T in full float32 (TF32 off, process-wide, as
+    everywhere in the port)."""
+    set_fp32_precision()
+    return torch.matmul(a.contiguous(), b_nk.contiguous().T)
+
+
+U = 2.0 ** -24  # fp32 unit roundoff
+TYPICAL_C = 4.0  # the typical limit's factor (PERF.md: set from chip runs)
+
+
+def gemm_error_limits(aq: torch.Tensor, bq_nk: torch.Tensor):
+    """The two elementwise limits on the difference between two fp32 GEMMs
+    of the same dequantized operands ``aq [M, Kp]`` and ``bq_nk [N, Kp]``,
+    as a pair of [M, N] tensors:
+
+    * worst: ``2·Kp·u·(|A_q| @ |B_q|)``, which holds for any two summation
+      orders of the same exact products;
+    * typical: ``TYPICAL_C·sqrt(Kp)·u·sqrt(A_q² @ B_q²)``. Rounding errors
+      of either sign add like a random walk, so for zero-mean operands
+      (N(0,1) inputs and cotangents) the difference grows like u·Kp·σ,
+      with σ² the mean squared product.
+
+    The worst limit grows like Kp·Σ|ab| while a zero-mean result grows like
+    sqrt(Kp)·σ, so over a long contraction (the pair's dW contracts over
+    M) it is far above the result and would pass an all-zero or wrongly
+    quantized output; the typical limit does not."""
+    kp = aq.shape[1]
+    worst = 2 * kp * U * _matmul_nt(aq.abs(), bq_nk.abs())
+    typical = TYPICAL_C * kp ** 0.5 * U * _matmul_nt(aq * aq,
+                                                     bq_nk * bq_nk).sqrt()
+    return worst, typical
+
+
+def mx_matmul_ref(lhs: MXTensor, rhs: MXTensor) -> torch.Tensor:
+    """[M, K] @ [N, K]^T -> [M, N] fp32 (both quantized along K)."""
+    return _matmul_nt(mx_dequantize_ref(lhs), mx_dequantize_ref(rhs))
+
+
+def mx_matmul_fp_ref(a: torch.Tensor, b: torch.Tensor, precision_a: str,
+                     precision_b: str) -> torch.Tensor:
+    """fp inputs a [M, K], b [K, N] -> quantize both along K, matmul fp32
+    (K must be a multiple of 16)."""
+    return mx_matmul_ref(mx_quantize_ref(a, precision_a),
+                         mx_quantize_ref(b.T, precision_b))
+
+
+def mx_matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, precision_a: str,
+                        precision_b: str) -> torch.Tensor:
+    """The fused GEMM's plain version: numerically ``mx_matmul_fp_ref``."""
+    return mx_matmul_fp_ref(a, b, precision_a, precision_b)
+
+
+def mx_matmul_bwd_pair_ref(g1: torch.Tensor, wt: torch.Tensor,
+                           xt: torch.Tensor, g2: torch.Tensor,
+                           precision: str):
+    """Both gradient GEMMs of ``y = x @ w``: ``dX = q(g1) @ q(wt)`` and
+    ``dW = q(xt) @ q(g2)``; ``g1``/``g2`` are the cotangent padded for each
+    GEMM's contraction axis (N for dX, M for dW)."""
+    return (mx_matmul_fp_ref(g1, wt, precision, precision),
+            mx_matmul_fp_ref(xt, g2, precision, precision))
+
+
+def mx_matmul_prequant_ref(a: torch.Tensor, qb: MXTensor,
+                           precision_a: str) -> torch.Tensor:
+    """``a [M, K]`` quantized on the fly @ a resident rhs-layout weight
+    (mantissa [K, N], planes [K/16, N]), which is only dequantized."""
+    qb_t = MXTensor(qb.mantissa.T, qb.exponent.T, qb.mx_bits.T, qb.precision)
+    return mx_matmul_ref(mx_quantize_ref(a, precision_a), qb_t)
