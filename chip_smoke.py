@@ -8,8 +8,9 @@ exits non-zero without printing a result:
 
 1. device  — a CUDA card must be present; prints its name and
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build   — compiles every hand-written kernel (one ``nvcc`` call,
-   sm_90a) from the checkout's sources.
+2. build   — compiles every hand-written kernel from the checkout's
+   sources (one ``nvcc`` per source, all started together, sm_90a, then
+   one link).
 3. kernels — holds ``mx_quantize`` / ``mx_dequantize`` against their plain
    PyTorch versions on the card, bitwise, for mx4/mx6/mx9 over every
    quantized leaf shape of full-width ResNet18 and WideResNet50, an odd K
@@ -38,6 +39,24 @@ exits non-zero without printing a result:
    and on ragged and zero-block shapes, with an all-zero dW and a dW of g
    quantized along the wrong axis shown to fail the typical limit at
    every GEMM; times at the largest GEMM and of whole passes.
+7. attention — the flash-attention kernel against its plain version on
+   the card, within 2e-5 (fp32) / 2e-2 (bf16) absolute and relative: the
+   main path's ViT-B/16 and ViT-B/32 attention at 224 px and batch 32
+   (fp32, non-causal, 197 and 50 tokens), GQA causal bf16, gemma2-2b's
+   local layer (8192 tokens, D 256, window 4096, softcap 50), a
+   decode-append (128 queries at offset 8064 against 8192 keys) and rows
+   with no key (exactly 0); times kernel, plain version and
+   ``F.scaled_dot_product_attention`` where one call computes the same
+   function, beside the bound (bytes over 3.35 TB/s, 4·B·H·D FLOPs per
+   unmasked pair over 989 TFLOP/s).
+8. vit     — the paper's second pair on the card: the phase-4 session with
+   the ViT-B/32 student and ViT-B/16 teacher (attention served by the
+   kernel only, MX6 copies by the quantize kernels, the same card-vs-CPU
+   checks); full width at 224 px with random weights, batch 32 — the
+   ViT-B/32 InferenceKernel and the ViT-B/16 LabelingKernel, MX6 fills
+   bitwise against the plain version, 12 attention launches per forward,
+   frames/s; one MX-free SGD step of full-width ViT-B/32 with finite
+   gradients (the attention's plain backward on the card).
 
 Before the last line it prints the card's ``nvidia-smi`` line and one JSON
 object describing each kernel; the last line is
@@ -136,6 +155,370 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def session_phase(tag: str, student, teacher, path_kernels):
+    """Phases 4 and 8: ``CLSystemSpec(student, teacher,
+    "dacapo-spatiotemporal", apply_mx=True, device="cuda")``, pretrained on
+    the card, run for 45 s of virtual time over S1. Every kernel of
+    ``path_kernels`` must have launched in the run and served all its calls
+    (counts set to 0 just before the run, read just after); the student's
+    MX6 serving tree must equal the port's plain CPU path bitwise, its
+    logits within 1e-3. Returns the run's launch counts and kernel_stats."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mx as mx_lib
+    from repro_torch.core.session import CLSystemSpec, pretrain_model
+    from repro_torch.data.stream import DriftStream, scenario
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    stream = DriftStream(scenario("S1", 3), seed=5, img=24)
+    spec = CLSystemSpec(student=student, teacher=teacher,
+                        allocator="dacapo-spatiotemporal", apply_mx=True,
+                        device="cuda")
+    session = spec.build()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    tp = pretrain_model(session.teacher, stream, 25, 32, rng)
+    sp = pretrain_model(session.student, stream, 15, 32, rng,
+                        segments=stream.segments[:1], seed=8)
+    session.set_pretrained(tp, sp)
+    torch.cuda.synchronize()
+    log(tag, f"{student.name} / {teacher.name}: pretrained teacher 25x32 + "
+        f"student 15x32 on the card in {time.perf_counter() - t0:.2f} s")
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    t0 = time.perf_counter()
+    res = session.run(stream, duration=45.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mxq.launch_counts()
+    stats = ops.kernel_stats()
+    log(tag, f"phases {len(res.phase_log)}, drift events "
+        f"{res.drift_events}, avg accuracy {res.avg_accuracy:.4f}, wall "
+        f"{wall:.2f} s, launches {launches}, kernel_stats {stats}")
+    for op in path_kernels:
+        served = stats.get(op, {})
+        if served.get("cuda", 0) < 1 or served.get("plain", 0) != 0:
+            raise AssertionError(f"{op} not served by the kernel: {served}")
+        if launches[op] < 1:
+            raise AssertionError(f"{op} launched no time on the main path")
+    if not res.phase_log or not np.isfinite(res.avg_accuracy):
+        raise AssertionError(f"bad session result: {len(res.phase_log)} "
+                             f"phases, avg accuracy {res.avg_accuracy}")
+    # The card against the port's plain CPU path on the same weights.
+    cpu_student = make_vision_model(session.student_cfg, "cpu")
+    cpu_params = tree_map(lambda p: p.cpu(), session.student_params)
+    serve_cuda = session.inference.serving_params(session.student_params,
+                                                  "mx6")
+    serve_cpu = mx_lib.quantize_tree(cpu_params, "mx6")
+    for a, b in zip(tree_leaves(serve_cuda), tree_leaves(serve_cpu)):
+        if not bitwise(a.cpu(), b):
+            raise AssertionError("MX6 serving tree: card != CPU plain path")
+    frames, _ = stream.frames(0.0, 2.0, max_frames=16)
+    with torch.no_grad():
+        lg_cuda = session.student.apply(serve_cuda, frames).cpu()
+        lg_cpu = cpu_student.apply(serve_cpu, frames)
+    diff = float((lg_cuda - lg_cpu).abs().max())
+    if not diff < 1e-3:
+        raise AssertionError(f"student logits card vs CPU differ by {diff}")
+    log(tag, "MX6 serving tree bitwise equal to the CPU plain path; "
+        f"student logits max |card - CPU| = {diff:.3g} (tolerance 1e-3, "
+        "fp32 summation order)")
+    return launches, stats
+
+
+def full_width_serve(tag: str, cfg, params, x, est, inference: bool):
+    """Phases 5 and 8: the InferenceKernel (``inference``) or the
+    LabelingKernel of ``cfg`` on full-width ``params``: the MX6 serving
+    copy filled through the kernels and checked bitwise against the plain
+    version on the card, finite logits for the batch ``x``, and frames/s
+    of three served batches. Returns the kernel and its serving tree."""
+    import torch
+
+    from repro_torch.core.kernel import InferenceKernel, LabelingKernel
+    from repro_torch.core.mx import _quantizable
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = make_vision_model(cfg, x.device)
+    cls = InferenceKernel if inference else LabelingKernel
+    kern = cls(model, cfg, est, apply_mx=True, device="cuda")
+    kern.serving_cache.get(params, "mx6")  # warm the allocator
+    kern.serving_cache.invalidate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serving = kern.serving_cache.get(params, "mx6")
+    torch.cuda.synchronize()
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain_tree = tree_map(
+        lambda p: ref.mx_quant_dequant_ref(
+            ops._pad_last(p.reshape(-1, p.shape[-1]), 16)[0],
+            "mx6")[:, : p.shape[-1]].reshape(p.shape)
+        if _quantizable(p, 1024) else p, params)
+    torch.cuda.synchronize()
+    plain_fill_ms = (time.perf_counter() - t0) * 1e3
+    for p, s, plain in zip(tree_leaves(params), tree_leaves(serving),
+                           tree_leaves(plain_tree)):
+        if _quantizable(p, 1024):
+            if not bitwise(s, plain):
+                raise AssertionError(f"{cfg.name}: kernel-filled serving "
+                                     "leaf != plain")
+        elif s is not p:
+            raise AssertionError(f"{cfg.name}: unquantized leaf copied")
+    if inference:
+        serve = lambda: kern.predict_async(params, x)  # noqa: E731
+    else:
+        serve = lambda: kern.label_async(params, x, "mx6")  # noqa: E731
+    with torch.no_grad():
+        logits = kern._run_apply(serving, x)
+    if logits.shape != (len(x), cfg.num_classes) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: bad logits {logits.shape}")
+    serve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = serve()
+    out.cpu()
+    fps = 3 * len(x) / (time.perf_counter() - t0)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log(tag, f"{cfg.name} ({n_params / 1e6:.1f} M params, {cfg.img_size} "
+        "px): "
+        f"MX6 serving fill {fill_ms:.2f} ms through the kernels "
+        f"({plain_fill_ms:.2f} ms plain), bitwise equal; "
+        f"{fps:.1f} frames/s at batch {len(x)}")
+    return kern, serving
+
+
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:87"  # Pallas wrapper
+# Phase 7's cases: (label, (B, Sq, Skv, H, Kv, D), dtype, options). The
+# first is the main path's largest attention, and the table row's shape.
+ATTENTION_CASES = (
+    ("vit-b16 224px batch 32", (32, 197, 197, 12, 12, 64), "float32",
+     dict(causal=False)),
+    ("vit-b32 224px batch 32", (32, 50, 50, 12, 12, 64), "float32",
+     dict(causal=False)),
+    ("gqa causal", (2, 1024, 1024, 8, 2, 64), "bfloat16",
+     dict(causal=True)),
+    ("gemma2-2b local layer", (1, 8192, 8192, 8, 4, 256), "bfloat16",
+     dict(causal=True, window=4096, softcap=50.0)),
+    ("decode-append", (1, 128, 8192, 8, 4, 256), "bfloat16",
+     dict(causal=True, q_offset=8064)),
+    ("fully masked rows", (1, 64, 64, 2, 2, 32), "float32",
+     dict(causal=True, q_offset=-4)),
+)
+ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window,
+                    q_offset: int) -> int:
+    """Unmasked (query, key) pairs of one head: each row at position
+    q_offset + i sees keys max(0, pos - window + 1) .. min(Skv - 1, pos)."""
+    import numpy as np
+
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    lo = np.maximum(pos - window + 1, 0) if window is not None else 0
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_bound_ms(shape, itemsize: int, pairs: int):
+    """(bound ms, "bytes" or "operations"): q, k, v and the output once
+    each over 3.35 TB/s; 4·B·H·D FLOPs per unmasked pair over 989
+    TFLOP/s."""
+    b, sq, skv, h, kvh, d = shape
+    nbytes = itemsize * (2 * b * sq * h * d + 2 * b * skv * kvh * d)
+    t_ops = 4 * b * h * d * pairs / BF16_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def sdpa_call(q, k, v, opts):
+    """One ``F.scaled_dot_product_attention`` call computing the same
+    function, or None where none does: a softcap, or a row with no key
+    (SDPA gives NaN there, the kernel 0). A window or an offset becomes a
+    boolean mask, GQA ``enable_gqa``. Timed only, as a yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    if opts.get("softcap") is not None:
+        return None
+    sq, skv = q.shape[1], k.shape[1]
+    mask = ref.attention_mask(sq, skv, causal=opts["causal"],
+                              window=opts.get("window"),
+                              q_offset=opts.get("q_offset", 0),
+                              device=q.device)
+    if not bool(mask.any(-1).all()):
+        return None
+    kw = {"enable_gqa": q.shape[2] != k.shape[2]}
+    if not bool(mask.all()):
+        kw["attn_mask"] = mask
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  **kw).transpose(1, 2)
+
+
+def attention_phase(dev="cuda"):
+    """Phase 7: the attention kernel against its plain version on the card
+    at every case of ``ATTENTION_CASES``, within 2e-5 (fp32) / 2e-2 (bf16)
+    absolute and relative; rows with no key exactly 0. Times kernel, plain
+    version and SDPA (where one call fits) and the bound. Returns the
+    per-case rows and the largest error."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows, max_err = [], 0.0
+    for label, shape, dtype, opts in ATTENTION_CASES:
+        b, sq, skv, h, kvh, d = shape
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(dt)
+        out = fa.flash_attention_cuda(q, k, v, **opts)
+        plain = ref.flash_attention_ref(q, k, v, **opts)
+        torch.cuda.synchronize()
+        tol = ATTENTION_TOL[dtype]
+        err = (out.float() - plain.float()).abs()
+        if out.shape != plain.shape or out.dtype != dt or not bool(
+                (err <= tol + tol * plain.float().abs()).all()):
+            raise AssertionError(f"flash_attention {label}: kernel vs plain "
+                                 f"max err {float(err.max())} (tol {tol})")
+        mask = ref.attention_mask(sq, skv, causal=opts["causal"],
+                                  window=opts.get("window"),
+                                  q_offset=opts.get("q_offset", 0),
+                                  device=dev)
+        dead = ~mask.any(-1)
+        if bool(dead.any()) and not bool((out[:, dead] == 0).all()):
+            raise AssertionError(f"flash_attention {label}: a row with no "
+                                 "key is not 0")
+        max_err = max(max_err, float(err.max()))
+        pairs = attention_pairs(sq, skv, opts["causal"], opts.get("window"),
+                                opts.get("q_offset", 0))
+        bound_ms, bound_by = attention_bound_ms(shape, q.element_size(),
+                                                pairs)
+        lib = sdpa_call(q, k, v, opts)
+        lib_err = (None if lib is None else
+                   float((lib().float() - plain.float()).abs().max()))
+        del out, plain
+        row = {"case": label, "shape_b_sq_skv_h_kv_d": list(shape),
+               "dtype": dtype, "options": opts, "max_abs_err": float(
+                   err.max()), "dead_rows": int(dead.sum()),
+               "pairs_per_head": pairs,
+               "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v,
+                                                             **opts)),
+               "plain_ms": time_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, **opts)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None if lib is None else time_ms(lib),
+               "library_max_abs_err": lib_err}
+        rows.append(row)
+        log("attention", "{case} {shape_b_sq_skv_h_kv_d} {dtype} {options}: "
+            "max err {max_abs_err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms,"
+            " SDPA {library_ms}), bound {bound_ms:.4f} ms ({bound_by})"
+            .format(**row))
+        del q, k, v
+        torch.cuda.empty_cache()
+    log("attention", f"kernel within tolerance of its plain version in all "
+        f"{len(rows)} cases (2e-5 fp32, 2e-2 bf16); max_abs_err {max_err}")
+    return rows, max_err
+
+
+def vit_phase(est, x):
+    """Phase 8: the ViT pair on the card. The DC-ST session with the
+    ViT-B/32 student and ViT-B/16 teacher (attention through the kernel,
+    MX6 serving copies through the quantize kernels); full width at 224 px
+    (random weights, batch ``x``): the ViT-B/32 InferenceKernel and the
+    ViT-B/16 LabelingKernel, 12 attention launches per forward; one
+    MX-free SGD step of full-width ViT-B/32 with finite gradients.
+    Returns the session's and the full-width launch counts."""
+    import torch
+
+    from repro_torch.configs.dacapo_pairs import VIT_B16, VIT_B32
+    from repro_torch.core.allocation import CLHyperParams
+    from repro_torch.core.kernel import sgd_momentum_step
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    launches, stats = session_phase(
+        "vit", VIT_B32, VIT_B16,
+        ("mx_quantize", "mx_dequantize", "flash_attention"))
+    if stats["flash_attention"] != {"cuda": launches["flash_attention"]}:
+        raise AssertionError(f"attention calls {stats['flash_attention']} "
+                             f"!= launches {launches['flash_attention']}")
+
+    def expect_attention(n: int, what: str) -> None:
+        got = mxq.launch_counts()["flash_attention"]
+        served = ops.kernel_stats().get("flash_attention")
+        if got != n or served != {"cuda": n}:
+            raise AssertionError(f"{what}: {got} attention launches, "
+                                 f"kernel_stats {served}; expected {n}")
+
+    gen = torch.Generator().manual_seed(3)
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    full = {}
+    for cfg in (VIT_B32, VIT_B16):
+        full[cfg.name] = make_vision_model(cfg, x.device).init(gen)
+        kern, serving = full_width_serve("vit", cfg, full[cfg.name], x, est,
+                                         inference=cfg is VIT_B32)
+        before = mxq.launch_counts()["flash_attention"]
+        with torch.no_grad():
+            kern._run_apply(serving, x)
+        torch.cuda.synchronize()
+        per_forward = mxq.launch_counts()["flash_attention"] - before
+        if per_forward != cfg.num_layers:
+            raise AssertionError(f"{cfg.name}: {per_forward} attention "
+                                 "launches per forward, expected "
+                                 f"{cfg.num_layers}")
+    full_launches = mxq.launch_counts()
+    expect_attention(full_launches["flash_attention"], "full width")
+    if min(full_launches[op] for op in ("mx_quantize", "mx_dequantize")) < 1:
+        raise AssertionError(f"full-width launches {full_launches}")
+    log("vit", f"full width: {VIT_B32.num_layers} attention launches per "
+        f"forward; launches {full_launches}, all served by cuda")
+
+    # One MX-free training step of full-width ViT-B/32: the attention's
+    # backward (plain PyTorch) on the card.
+    model = make_vision_model(VIT_B32, x.device)
+    params = full[VIT_B32.name]
+    y = torch.randint(0, VIT_B32.num_classes, (len(x),),
+                      generator=torch.Generator().manual_seed(4)).to(x.device)
+    opt = tree_map(torch.zeros_like, params)
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    t0 = time.perf_counter()
+    new_params, grads, loss = sgd_momentum_step(model, params, opt, x, y,
+                                                CLHyperParams().lr)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    expect_attention(VIT_B32.num_layers, "training step")
+    # From zero momentum the new momentum is the gradient.
+    if not bool(torch.isfinite(loss)) or not all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(grads)):
+        raise AssertionError("ViT-B/32 training step: non-finite loss or "
+                             "gradient")
+    if all(bool((a == b).all()) for a, b in zip(tree_leaves(new_params),
+                                                tree_leaves(params))):
+        raise AssertionError("ViT-B/32 training step changed no weight")
+    log("vit", f"vit-b32 full-width SGD step at batch {len(x)}: loss "
+        f"{float(loss):.4f}, every gradient finite, {step_s:.3f} s host wall "
+        f"(first step), {VIT_B32.num_layers} attention launches")
+    return launches, full_launches
 
 
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
@@ -449,15 +832,12 @@ def main() -> None:
 
     from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
     from repro_torch.core.estimator import DaCapoEstimator
-    from repro_torch.core.kernel import InferenceKernel, LabelingKernel
     from repro_torch.core.mx import _quantizable
-    from repro_torch.core.session import CLSystemSpec, pretrain_model
-    from repro_torch.data.stream import DriftStream, scenario
     from repro_torch.kernels import mx_quantize as mxq
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
     from repro_torch.models.registry import make_vision_model
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -468,8 +848,8 @@ def main() -> None:
     # ------------------------------------------------------------- 2 build
     t0 = time.perf_counter()
     lib = mxq.build()
-    log("build", f"one nvcc call, sm_90a, {[p.name for p in mxq.sources()]} "
-        f"-> {lib.name} in "
+    log("build", f"one nvcc per source, all started together, then one link;"
+        f" sm_90a, {[p.name for p in mxq.sources()]} -> {lib.name} in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
@@ -539,116 +919,17 @@ def main() -> None:
     biggest = max(timings, key=lambda r: r["shape"][0] * r["shape"][1])
 
     # ----------------------------------------------------------- 4 session
-    stream = DriftStream(scenario("S1", 3), seed=5, img=24)
-    spec = CLSystemSpec(student=RESNET18, teacher=WIDERESNET50,
-                        allocator="dacapo-spatiotemporal", apply_mx=True,
-                        device="cuda")
-    session = spec.build()
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    tp = pretrain_model(session.teacher, stream, 25, 32, rng)
-    sp = pretrain_model(session.student, stream, 15, 32, rng,
-                        segments=stream.segments[:1], seed=8)
-    session.set_pretrained(tp, sp)
-    torch.cuda.synchronize()
-    log("session", f"pretrained teacher 25x32 + student 15x32 on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
-    mxq.reset_launch_counts()
-    ops.reset_kernel_stats()
-    t0 = time.perf_counter()
-    res = session.run(stream, duration=45.0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = mxq.launch_counts()
-    stats = ops.kernel_stats()
-    log("session", f"phases {len(res.phase_log)}, drift events "
-        f"{res.drift_events}, avg accuracy {res.avg_accuracy:.4f}, wall "
-        f"{wall:.2f} s, launches {launches}, kernel_stats {stats}")
-    for op in ("mx_quantize", "mx_dequantize"):
-        served = stats.get(op, {})
-        if served.get("cuda", 0) < 1 or served.get("plain", 0) != 0:
-            raise AssertionError(f"{op} not served by the kernel: {served}")
-        if launches[op] < 1:
-            raise AssertionError(f"{op} launched no time on the main path")
-    if not res.phase_log or not np.isfinite(res.avg_accuracy):
-        raise AssertionError(f"bad session result: {len(res.phase_log)} "
-                             f"phases, avg accuracy {res.avg_accuracy}")
-    # The card against the port's plain CPU path on the same weights.
-    cpu_student = make_vision_model(session.student_cfg, "cpu")
-    cpu_params = tree_map(lambda p: p.cpu(), session.student_params)
-    from repro_torch.core import mx as mx_lib
-    serve_cuda = session.inference.serving_params(session.student_params,
-                                                  "mx6")
-    serve_cpu = mx_lib.quantize_tree(cpu_params, "mx6")
-    for a, b in zip(tree_leaves(serve_cuda), tree_leaves(serve_cpu)):
-        if not bitwise(a.cpu(), b):
-            raise AssertionError("MX6 serving tree: card != CPU plain path")
-    frames, _ = stream.frames(0.0, 2.0, max_frames=16)
-    with torch.no_grad():
-        lg_cuda = session.student.apply(serve_cuda, frames).cpu()
-        lg_cpu = cpu_student.apply(serve_cpu, frames)
-    diff = float((lg_cuda - lg_cpu).abs().max())
-    if not diff < 1e-3:
-        raise AssertionError(f"student logits card vs CPU differ by {diff}")
-    log("session", "MX6 serving tree bitwise equal to the CPU plain path; "
-        f"student logits max |card - CPU| = {diff:.3g} (tolerance 1e-3, "
-        "fp32 summation order)")
+    launches, _ = session_phase("session", RESNET18, WIDERESNET50,
+                                ("mx_quantize", "mx_dequantize"))
 
     # -------------------------------------------------------- 5 full width
     est = DaCapoEstimator()
     x = torch.from_numpy(np.random.default_rng(1).normal(
         size=(32, 224, 224, 3)).astype(np.float32)).to(dev)
     mxq.reset_launch_counts()
-    full_launches = {}
     for cfg in (RESNET18, WIDERESNET50):
-        model = make_vision_model(cfg, dev)
-        params = full[cfg.name]
-        cls = InferenceKernel if cfg is RESNET18 else LabelingKernel
-        kern = cls(model, cfg, est, apply_mx=True, device="cuda")
-        kern.serving_cache.get(params, "mx6")  # warm the allocator
-        kern.serving_cache.invalidate()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serving = kern.serving_cache.get(params, "mx6")
-        torch.cuda.synchronize()
-        fill_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        plain_tree = tree_map(
-            lambda p: ref.mx_quant_dequant_ref(
-                ops._pad_last(p.reshape(-1, p.shape[-1]), 16)[0],
-                "mx6")[:, : p.shape[-1]].reshape(p.shape)
-            if _quantizable(p, 1024) else p, params)
-        torch.cuda.synchronize()
-        plain_fill_ms = (time.perf_counter() - t0) * 1e3
-        for p, s, plain in zip(tree_leaves(params), tree_leaves(serving),
-                               tree_leaves(plain_tree)):
-            if _quantizable(p, 1024):
-                if not bitwise(s, plain):
-                    raise AssertionError(f"{cfg.name}: kernel-filled serving "
-                                         "leaf != plain")
-            elif s is not p:
-                raise AssertionError(f"{cfg.name}: unquantized leaf copied")
-        if cfg is RESNET18:
-            serve = lambda: kern.predict_async(params, x)  # noqa: E731
-        else:
-            serve = lambda: kern.label_async(params, x, "mx6")  # noqa: E731
-        with torch.no_grad():
-            logits = kern._run_apply(serving, x)
-        if logits.shape != (32, cfg.num_classes) or not bool(
-                torch.isfinite(logits).all()):
-            raise AssertionError(f"{cfg.name}: bad logits {logits.shape}")
-        serve()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            out = serve()
-        out.cpu()
-        fps = 3 * 32 / (time.perf_counter() - t0)
-        n_params = sum(p.numel() for p in tree_leaves(params))
-        log("full", f"{cfg.name} ({n_params / 1e6:.1f} M params, 224 px): "
-            f"MX6 serving fill {fill_ms:.2f} ms through the kernels "
-            f"({plain_fill_ms:.2f} ms plain), bitwise equal; "
-            f"{fps:.1f} frames/s at batch 32")
+        full_width_serve("full", cfg, full[cfg.name], x, est,
+                         inference=cfg is RESNET18)
     full_launches = mxq.launch_counts()
     if min(full_launches[op] for op in ("mx_quantize", "mx_dequantize")) < 1:
         raise AssertionError(f"full-width launches {full_launches}")
@@ -658,6 +939,17 @@ def main() -> None:
     t0 = time.perf_counter()
     gemm_rows = gemm_phase(RESNET18, full[RESNET18.name], 32)
     log("gemm", f"phase done in {time.perf_counter() - t0:.2f} s")
+    del full
+
+    # --------------------------------------------------------- 7 attention
+    t0 = time.perf_counter()
+    attention_rows, attention_err = attention_phase()
+    log("attention", f"phase done in {time.perf_counter() - t0:.2f} s")
+
+    # --------------------------------------------------------------- 8 vit
+    t0 = time.perf_counter()
+    vit_launches, vit_full_launches = vit_phase(est, x)
+    log("vit", f"phase done in {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     for name, ms, plain_ms, replaces in (
@@ -673,6 +965,18 @@ def main() -> None:
             "library_ms": None, "shape": biggest["shape"],
             "precision": "mx6", "launches_full_width": full_launches[name]})
     kernels += gemm_rows
+    main_case = attention_rows[0]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+        "replaces": FA_REPLACES,
+        "launches": vit_launches["flash_attention"],
+        "max_abs_err": attention_err,
+        **{key: main_case[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": main_case["shape_b_sq_skv_h_kv_d"],
+        "precision": main_case["dtype"],
+        "launches_full_width": vit_full_launches["flash_attention"],
+        "cases": attention_rows})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

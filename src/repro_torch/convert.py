@@ -1,9 +1,10 @@
 """Carry weights across between the JAX package and the port.
 
-A JAX ResNet parameter tree, handed over as numpy arrays (on the JAX side:
-``jax.tree_util.tree_map(np.asarray, tree)``), becomes the port's tree on
-a given device, bit for bit: same nesting, same key names, same layouts
-(conv weights stay HWIO). JAX's random streams cannot be reproduced in
+A JAX ResNet or ViT parameter tree, handed over as numpy arrays (on the
+JAX side: ``jax.tree_util.tree_map(np.asarray, tree)``), becomes the port's
+tree on a given device, bit for bit: same nesting (a ViT's ``blocks`` list
+of dicts too), same key names, same shapes and layouts (conv weights stay
+HWIO, dense weights [in, out], the ViT's ``cls`` and ``pos`` stay 3-D). JAX's random streams cannot be reproduced in
 torch, so this is how both packages compute on the same weights.
 
 An MX representation crosses the same way (``mx_from_numpy`` /

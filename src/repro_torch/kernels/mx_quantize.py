@@ -8,12 +8,14 @@ the bound and the design. Their plain versions are
 ``kernels/ref.py::mx_quantize_ref`` / ``mx_dequantize_ref``.
 
 Build: this module also builds the library every kernel of the port lives
-in. At first use, ONE ``nvcc`` call compiles every ``csrc/*.cu`` for
-``sm_90a`` into one shared library with a plain C interface, under
-``_build/`` beside this file (ignored by git), keyed by the hash of all
-sources and headers; ``ctypes`` loads it and ``load()`` binds every C
-function. The GEMM wrappers (``mx_matmul.py``, ``mx_fused.py``) launch
-through the same library and count their launches in the same counters.
+in. At first use, one ``nvcc`` per ``csrc/*.cu``, all started together,
+compiles the sources for ``sm_90a``, and one more links them into one
+shared library with a plain C interface, under ``_build/`` beside this file
+(ignored by git), keyed by the hash of all sources and headers; ``ctypes``
+loads it and ``load()`` binds every C function. The GEMM wrappers
+(``mx_matmul.py``, ``mx_fused.py``) and the attention wrapper
+(``flash_attention.py``) launch through the same library and count their
+launches in the same counters.
 
 Only a CUDA tensor reaches these wrappers (``kernels/ops.py`` routes a CPU
 tensor to the plain version); they raise on anything they do not take,
@@ -37,7 +39,7 @@ from repro_torch.kernels.ref import BLOCK, MANTISSA_BITS, MXTensor
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -46,7 +48,8 @@ _lib_lock = threading.Lock()
 # launched. Shared by every caller in the process, hence the lock.
 _launches: Dict[str, int] = {
     "mx_quantize": 0, "mx_dequantize": 0, "mx_matmul": 0,
-    "mx_matmul_fused": 0, "mx_matmul_bwd_pair": 0, "mx_matmul_prequant": 0}
+    "mx_matmul_fused": 0, "mx_matmul_bwd_pair": 0, "mx_matmul_prequant": 0,
+    "flash_attention": 0}
 _launch_lock = threading.Lock()
 
 
@@ -93,27 +96,45 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every kernel in one ``nvcc`` call (once per hash of the
-    sources and headers) and return the library. The compiler's resource
-    report (``-Xptxas -v``) is kept beside it."""
+    """Compile every kernel (once per hash of the sources and headers) and
+    return the library: one ``nvcc -c`` per source, all started together,
+    then one ``nvcc -shared`` link. The compiler's resource report
+    (``-Xptxas -v``) of every source is kept beside the library."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = sources()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    srcs = [str(p) for p in sources()]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {srcs}:\n"
-                           f"{proc.stderr}")
+    failed = [(src.name, proc.returncode, log) for src, proc, log in
+              zip(srcs, procs, logs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, logs[-1]))
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({code}):\n{log}" for name, code, log in failed))
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
 # ctypes argument types of every C function of the library, by name.
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_F32 = ctypes.c_float
 _SIGNATURES = {
     "mx_quantize_f32": [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _PTR],
     "mx_dequantize_f32": [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _PTR],
@@ -125,6 +146,8 @@ _SIGNATURES = {
                          _PTR, _I32, _I32, _I32, _PTR],
     "mx_gemm_bwd_pair": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I32, _I32,
                          _I32, _PTR],
+    "flash_attention_fwd": [_PTR] * 4 + [_I32] * 7 + [_I64] * 12
+    + [_F32, _I32, _F32, _I32, _I32, _I32, _I32, _PTR],
 }
 
 

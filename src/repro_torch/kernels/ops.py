@@ -1,11 +1,11 @@
-"""Public entries of the port's MX kernels (the MX quantize and GEMM
-entries of the JAX package's ``kernels/ops.py``).
+"""Public entries of the port's kernels (the MX quantize, MX GEMM and
+flash-attention entries of the JAX package's ``kernels/ops.py``).
 
 The path is chosen by the tensor's device, never by a setting:
 
 * a CUDA tensor goes to the hand-written kernel (``mx_quantize.py``,
-  ``mx_matmul.py``, ``mx_fused.py``) — or the call raises; nothing falls
-  back to the plain version;
+  ``mx_matmul.py``, ``mx_fused.py``, ``flash_attention.py``) — or the call
+  raises; nothing falls back to the plain version;
 * a CPU tensor goes to the plain PyTorch version (``ref.py``), which is
   what the CPU tests compare with the JAX package.
 
@@ -15,11 +15,12 @@ The path is chosen by the tensor's device, never by a setting:
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mx_fused as _mf
 from repro_torch.kernels import mx_matmul as _mm
 from repro_torch.kernels import mx_quantize as _mq
@@ -55,13 +56,14 @@ def _path(t: torch.Tensor) -> str:
         return "cuda"
     if t.device.type == "cpu":
         return "plain"
-    raise ValueError(f"no MX kernel for device {t.device}")
+    raise ValueError(f"no MX kernel or attention kernel for device "
+                     f"{t.device}")
 
 
-def _gemm_path(*ts: torch.Tensor) -> str:
-    """The path of a GEMM whose operands must share one device."""
+def _shared_path(*ts: torch.Tensor) -> str:
+    """The path of an op whose operands must share one device."""
     if any(t.device != ts[0].device for t in ts):
-        raise ValueError("GEMM operands on different devices: "
+        raise ValueError("operands on different devices: "
                          f"{[str(t.device) for t in ts]}")
     return _path(ts[0])
 
@@ -130,7 +132,7 @@ def mx_matmul(a: torch.Tensor, b: torch.Tensor, precision_a: str = "mx6",
     UNFUSED chain: the operands are quantized by ``mx_quantize`` and
     stored, then the GEMM dequantizes them. Prefer
     :func:`mx_matmul_fused` on the hot path."""
-    path = _gemm_path(a, b)
+    path = _shared_path(a, b)
     a, pad = _pad_last(a, BLOCK)
     b = _pad_rows(b, pad)
     qa = mx_quantize(a, precision_a)
@@ -148,7 +150,7 @@ def mx_matmul_fused(a: torch.Tensor, b: torch.Tensor,
     """Fused quantize→matmul: a [M, K] @ b [K, N] → fp32 [M, N], both
     operands quantized per 16-block along K inside the GEMM — one launch.
     Bit-identical to :func:`mx_matmul` on either path."""
-    path = _gemm_path(a, b)
+    path = _shared_path(a, b)
     if path == "cuda":
         out = _mf.mx_matmul_fused_cuda(a, b, precision_a, precision_b)
     else:
@@ -176,7 +178,7 @@ def mx_matmul_bwd_pair(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"expected g [M, N], x [M, K], w [K, N], got "
                          f"{tuple(g.shape)}, {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
-    path = _gemm_path(g, x, w)
+    path = _shared_path(g, x, w)
     if path == "cuda":
         dx, dw = _mf.mx_matmul_bwd_pair_cuda(g, x, w, precision)
     else:
@@ -208,11 +210,53 @@ def mx_matmul_prequant(a: torch.Tensor, qb: MXTensor,
     kq = qb.mantissa.shape[0]
     if not (kq % BLOCK == 0 and k <= kq < k + BLOCK):
         raise ValueError(f"weight K {kq} does not cover activation K {k}")
-    path = _gemm_path(a, qb.mantissa)
+    path = _shared_path(a, qb.mantissa)
     if path == "cuda":
         out = _mf.mx_matmul_prequant_cuda(a, qb, precision_a)
     else:
         out = _ref.mx_matmul_prequant_ref(_pad_last(a, BLOCK)[0], qb,
                                           precision_a)
     _count("mx_matmul_prequant", path)
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the kernel (the plain version for a CPU
+    tensor) and whose backward is plain PyTorch
+    (``ref.flash_attention_bwd_ref``), recomputing P from the saved q and
+    k. The JAX package has no Pallas backward for attention — XLA
+    differentiates the ViT's einsum attention — so neither has the port."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, path, opts):
+        if path == "cuda":
+            out = _fa.flash_attention_cuda(q, k, v, **opts)
+        else:
+            out = _ref.flash_attention_ref(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _ref.flash_attention_bwd_ref(q, k, v, do, **ctx.opts)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Flash attention; q [B, Sq, H, D], k/v [B, Skv, Kv, D] -> [B, Sq, H,
+    D] in q's dtype, differentiable. Query row i sits at position
+    ``q_offset + i``, as in the Pallas kernel (see ``ref.py``). The Pallas
+    tile sizes ``qb`` / ``kvb`` and ``interpret`` are TPU tiling and are not
+    ported."""
+    path = _shared_path(q, k, v)
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset)
+    out = _FlashAttention.apply(q, k, v, path, opts)
+    _count("flash_attention", path)
     return out

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the MX quantize and GEMM
-oracles of the JAX package's ``kernels/ref.py``).
+oracles of the JAX package's ``kernels/ref.py``, and the attention that its
+Pallas flash-attention kernel computes; see the section at the end).
 
 MX (micro-exponent block floating point), as in the paper's §V-B:
   - blocks of 16 address-adjacent values along the last axis share an
@@ -10,9 +11,10 @@ MX (micro-exponent block floating point), as in the paper's §V-B:
   - mantissas are sign-magnitude with 2 (MX4), 4 (MX6) or 7 (MX9) bits.
 
 These functions are what the CUDA kernels (``kernels/csrc/*.cu``) are held
-to — the quantize and dequantize kernels bitwise, the GEMMs within fp32
-summation order — and what ``kernels/ops.py`` serves for a CPU tensor.
-They run on any device. Two choices pin the numerics down exactly:
+to — the quantize and dequantize kernels bitwise, the GEMMs and the
+attention within fp32 summation order — and what ``kernels/ops.py`` serves
+for a CPU tensor. They run on any device. Two choices pin the MX numerics
+down exactly:
 
 * Zero and fp32 denormal inputs both count as zero: exponent ``EXP_MIN``
   and mantissa 0. XLA treats denormal inputs as zero (on the TPU, and on
@@ -202,3 +204,104 @@ def mx_matmul_prequant_ref(a: torch.Tensor, qb: MXTensor,
     (mantissa [K, N], planes [K/16, N]), which is only dequantized."""
     qb_t = MXTensor(qb.mantissa.T, qb.exponent.T, qb.mx_bits.T, qb.precision)
     return mx_matmul_ref(mx_quantize_ref(a, precision_a), qb_t)
+
+
+# ------------------------------------------------------ flash attention ---
+# The plain version of the attention kernel (csrc/flash_attention.cu). It
+# computes what the JAX package's Pallas kernel computes
+# (kernels/flash_attention.py::_attn_kernel), which differs from the JAX
+# oracle ``ref.flash_attention_ref`` in two ways, and the port follows the
+# kernel in both:
+#
+# * a query row i sits at position ``q_offset + i``; the oracle ignores
+#   ``q_offset`` and puts it at ``i + Skv - Sq``;
+# * a row with no unmasked key comes out 0 (masked probabilities are
+#   zeroed and the normalizer is floored at 1e-30); the oracle's softmax
+#   over an all-``NEG_INF`` row averages v.
+#
+# Order of operations, as in the kernel: the logits in fp32 (float64
+# inputs stay float64), times ``scale``, then the softcap
+# ``softcap * tanh(s / softcap)``, then the mask with ``NEG_INF``; the
+# output is cast to q's dtype.
+
+NEG_INF = -1e30  # the Pallas kernel's mask value
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool, window, q_offset: int,
+                   device=None) -> torch.Tensor:
+    """[Sq, Skv] bool: True where query row i (position ``q_offset + i``)
+    may attend to key j."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _attention_scores(q, k, *, causal, window, softcap, scale, q_offset):
+    """Unnormalized probabilities P̃ [B, Kv, G, Sq, Skv], their row sums
+    (floored at 1e-30), tanh(s / softcap) (or None) and the resolved
+    scale. Query head h uses kv head h // G."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    scale = d ** -0.5 if scale is None else float(scale)
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    set_fp32_precision()
+    qg = q.to(ct).reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.to(ct)) * scale
+    tanh = None
+    if softcap is not None:
+        tanh = torch.tanh(s / softcap)
+        s = softcap * tanh
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    return p, p.sum(-1, keepdim=True).clamp_min(1e-30), tanh, scale
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window=None, softcap=None,
+                        scale=None, q_offset: int = 0) -> torch.Tensor:
+    """q [B, Sq, H, D], k/v [B, Skv, Kv, D] -> [B, Sq, H, D] in q's dtype:
+    ``(P̃ @ v) / l``, as the kernel divides its accumulator at the end."""
+    b, sq, h, d = q.shape
+    p, l, _, _ = _attention_scores(q, k, causal=causal, window=window,
+                                   softcap=softcap, scale=scale,
+                                   q_offset=q_offset)
+    o = torch.einsum("bkgqt,btkd->bkgqd", p, v.to(p.dtype)) / l
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, do, *, causal: bool = True, window=None,
+                            softcap=None, scale=None, q_offset: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention_ref` for the output cotangent
+    ``do``, from P recomputed with the same mask, softcap and scale:
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − rowsum(dO ⊙ O)) — the row sum
+    taken as rowsum(P ⊙ dP), the same sum — chained through the softcap's
+    tanh′ = 1 − tanh² and the scale; the G query heads of a kv head are
+    summed into its dK and dV."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    p, l, tanh, scale = _attention_scores(q, k, causal=causal, window=window,
+                                          softcap=softcap, scale=scale,
+                                          q_offset=q_offset)
+    p = p / l
+    ct = p.dtype
+    qg = q.to(ct).reshape(b, sq, kvh, h // kvh, d)
+    dog = do.to(ct).reshape(b, sq, kvh, h // kvh, d)
+    kf, vf = k.to(ct), v.to(ct)
+    dv = torch.einsum("bkgqt,bqkgd->btkd", p, dog)
+    dp = torch.einsum("bqkgd,btkd->bkgqt", dog, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if tanh is not None:
+        ds = ds * (1 - tanh * tanh)
+    ds = ds * scale
+    dq = torch.einsum("bkgqt,btkd->bqkgd", ds, kf).reshape(b, sq, h, d)
+    dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

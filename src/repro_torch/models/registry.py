@@ -10,6 +10,7 @@ import torch
 from repro_torch.configs.dacapo_pairs import VisionConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import resnet as resnet_lib
+from repro_torch.models import vit as vit_lib
 from repro_torch.tree import tree_leaves
 
 
@@ -21,7 +22,9 @@ class VisionModel:
     def init(self, gen: torch.Generator):
         """Random weights from a CPU ``torch.Generator``, on the model's
         device."""
-        return resnet_lib.init_resnet(gen, self.cfg, self.device)
+        if self.cfg.kind == "resnet":
+            return resnet_lib.init_resnet(gen, self.cfg, self.device)
+        return vit_lib.init_vit(gen, self.cfg, self.device)
 
     def apply(self, params, images) -> torch.Tensor:
         """images [B,H,W,3] (numpy or tensor) -> logits [B,C] on the
@@ -29,7 +32,14 @@ class VisionModel:
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         x = images.to(device=self.device, dtype=torch.float32)
-        return resnet_lib.resnet_forward(params, x, self.cfg)
+        if self.cfg.kind == "resnet":
+            return resnet_lib.resnet_forward(params, x, self.cfg)
+        return vit_lib.vit_forward(params, x, self.cfg)
+
+    def flops(self) -> float:
+        if self.cfg.kind == "resnet":
+            return resnet_lib.resnet_flops(self.cfg)
+        return vit_lib.vit_flops(self.cfg)
 
     def param_count(self, params) -> int:
         return sum(p.numel() for p in tree_leaves(params))
@@ -38,10 +48,6 @@ class VisionModel:
 def make_vision_model(cfg: VisionConfig,
                       device: DeviceLike = None) -> VisionModel:
     """A model handle on ``device`` (default ``cuda``; raises without a
-    card). ResNets only: the ViT is not ported yet."""
-    if cfg.kind != "resnet":
-        raise NotImplementedError(
-            f"{cfg.name}: the ViT is not ported yet (ROADMAP Queue 1, item 3:"
-            " models/vit.py)")
+    card)."""
     return VisionModel(cfg, resolve_device(device))
 

@@ -24,14 +24,18 @@ import torch.nn.functional as F
 from repro.configs import dacapo_pairs as jcfg
 from repro.core.allocation import CLHyperParams as JHyperParams
 from repro.core.estimator import DaCapoEstimator as JEstimator
+from repro.core.estimator import vision_gemms as jvision_gemms
 from repro.core.kernel import RetrainKernel as JRetrainKernel
 from repro.models import resnet as jresnet
+from repro.models import vit as jvit
 from repro.models.registry import make_vision_model as j_make_vision_model
 from repro_torch.configs import dacapo_pairs as tcfg
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.allocation import CLHyperParams
+from repro_torch.core.estimator import vision_gemms as tvision_gemms
 from repro_torch.core.kernel import RetrainKernel
 from repro_torch.models import resnet as tresnet
+from repro_torch.models import vit as tvit
 from repro_torch.models.registry import make_vision_model
 
 # (name, JAX config, port config): both reduced twins at 24 px, plus narrow
@@ -89,13 +93,17 @@ def test_converter_is_bit_exact():
 
 @pytest.mark.parametrize("name", sorted(jcfg.VISION_MODELS))
 def test_block_plan_and_flops_match(name):
+    """Full width and reduced; a ViT has no block plan, so its FLOPs and
+    its estimator GEMM list are compared instead."""
     jc = jcfg.VISION_MODELS[name]
-    if jc.kind != "resnet":
-        with pytest.raises(NotImplementedError, match="ViT"):
-            make_vision_model(tcfg.VISION_MODELS[name], device="cpu")
-        return
     for j, t in ((jc, tcfg.VISION_MODELS[name]),
                  (jc.reduced(), tcfg.VISION_MODELS[name].reduced())):
+        if jc.kind != "resnet":
+            assert tvit.vit_flops(t) == jvit.vit_flops(j)
+            assert tvision_gemms(t, 2) == jvision_gemms(j, 2)
+            assert make_vision_model(t, device="cpu").flops() == \
+                jvit.vit_flops(j)
+            continue
         assert tresnet.block_plan(t) == jresnet.block_plan(j)
         assert tresnet.resnet_flops(t) == jresnet.resnet_flops(j)
 
