@@ -32,23 +32,29 @@ exits non-zero without printing a result:
    ``mx_dense`` (forward and backward), MX6 serving through
    ``mx_quantize_rhs`` + ``mx_dense_prequant``, and the unfused
    ``ops.mx_matmul``; 21 launches of each GEMM kernel per pass, all
-   served by "cuda"; the bitwise contracts fused = unfused = prequant and
-   pair = two fused; every kernel within the worst summation-order limit
-   2·Kp·2⁻²⁴·(|A_q| @ |B_q|) and the typical limit
-   4·sqrt(Kp)·2⁻²⁴·sqrt(A_q² @ B_q²) of its plain version, on every GEMM
-   and on ragged and zero-block shapes, with an all-zero dW and a dW of g
-   quantized along the wrong axis shown to fail the typical limit at
-   every GEMM; times at the largest GEMM and of whole passes.
+   served by "cuda"; prints each GEMM's split of its contraction (pieces
+   S for the forward and the pair's dX and dW); the bitwise contracts
+   fused = unfused = prequant and pair = two fused; every kernel within
+   the worst summation-order limit 2·Kp·2⁻²⁴·(|A_q| @ |B_q|) and the
+   typical limit 4·sqrt(Kp)·2⁻²⁴·sqrt(A_q² @ B_q²) of its plain version,
+   on every GEMM and on ragged and zero-block shapes, with an all-zero dW
+   and a dW of g quantized along the wrong axis shown to fail the typical
+   limit at every GEMM; times at the largest GEMM (the stem; the pair's
+   dX and dW also alone) and of whole passes.
 7. attention — the flash-attention kernel against its plain version on
-   the card, within 2e-5 (fp32) / 2e-2 (bf16) absolute and relative: the
-   main path's ViT-B/16 and ViT-B/32 attention at 224 px and batch 32
-   (fp32, non-causal, 197 and 50 tokens), GQA causal bf16, gemma2-2b's
-   local layer (8192 tokens, D 256, window 4096, softcap 50), a
-   decode-append (128 queries at offset 8064 against 8192 keys) and rows
-   with no key (exactly 0); times kernel, plain version and
-   ``F.scaled_dot_product_attention`` where one call computes the same
-   function, beside the bound (bytes over 3.35 TB/s, 4·B·H·D FLOPs per
-   unmasked pair over 989 TFLOP/s).
+   the card, within 2e-5 (fp32) / 2e-2 (bf16) absolute and relative and
+   with the error's RMS within 2^-12 (fp32) / 2^-6 (bf16) of the plain
+   output's (and against the plain version of the kv split where the plan
+   splits): the main path's ViT-B/16 and ViT-B/32 attention at 224 px and
+   batch 32 (fp32, non-causal, 197 and 50 tokens), GQA causal bf16,
+   gemma2-2b's local layer (8192 tokens, D 256, window 4096, softcap 50),
+   a decode-append (128 queries at offset 8064 against 8192 keys) in bf16
+   and in fp32, and rows with no key (exactly 0); prints each case's
+   design (3xTF32 or bf16 MMAs) and kv split count; times kernel, plain
+   version and ``F.scaled_dot_product_attention`` where one call computes
+   the same function, beside the bound (bytes over 3.35 TB/s, 4·B·H·D
+   FLOPs per unmasked pair over 989 TFLOP/s). ``attention_mutants.py``
+   shows that this check fails a faulty kv combine on the card.
 8. vit     — the paper's second pair on the card: the phase-4 session with
    the ViT-B/32 student and ViT-B/16 teacher (attention served by the
    kernel only, MX6 copies by the quantize kernels, the same card-vs-CPU
@@ -312,10 +318,31 @@ ATTENTION_CASES = (
      dict(causal=True, window=4096, softcap=50.0)),
     ("decode-append", (1, 128, 8192, 8, 4, 256), "bfloat16",
      dict(causal=True, q_offset=8064)),
+    ("decode-append fp32", (1, 128, 8192, 8, 4, 256), "float32",
+     dict(causal=True, q_offset=8064)),
     ("fully masked rows", (1, 64, 64, 2, 2, 32), "float32",
      dict(causal=True, q_offset=-4)),
 )
 ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+# A second limit: the error's RMS as a share of the plain output's RMS.
+# Where rows average thousands of keys, a typical output (sqrt(e / Skv),
+# 0.018 at 8192) is the size of the bf16 limit, so a kv combine that drops
+# a piece or skips the e^(m_s - m) rescale (RMS share 0.25-0.35 at the
+# decode-append, attention_mutants.py on an H100) could pass it
+# elementwise. Rounding P and the output to bf16 leaves the sound kernel
+# near 2^-9 (0.0021-0.0024 in this phase on an H100); fp32 below 1e-5.
+ATTENTION_RMS_SHARE = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
+
+
+def attention_inputs(gen, shape, dtype: str, dev):
+    """q [B, Sq, H, D], k and v [B, Skv, Kv, D]: N(0, 1) from ``gen`` in
+    ``dtype``."""
+    import torch
+
+    b, sq, skv, h, kvh, d = shape
+    return [torch.randn(size, generator=gen, device=dev).to(
+        getattr(torch, dtype)) for size in ((b, sq, h, d), (b, skv, kvh, d),
+                                            (b, skv, kvh, d))]
 
 
 def attention_pairs(sq: int, skv: int, causal: bool, window,
@@ -368,12 +395,46 @@ def sdpa_call(q, k, v, opts):
                                                   **kw).transpose(1, 2)
 
 
+def attention_readings(out, want, dtype: str):
+    """(max abs error, largest share of the elementwise limit tol +
+    tol·|want| of ``ATTENTION_TOL``, RMS(out - want) / RMS(want))."""
+    tol = ATTENTION_TOL[dtype]
+    wf = want.float()
+    err = (out.float() - wf).abs()
+    return (float(err.max()), float((err / (tol + tol * wf.abs())).max()),
+            float(err.square().mean().sqrt()
+                  / wf.square().mean().sqrt().clamp_min(1e-30)))
+
+
+def attention_within(label: str, out, want, dtype: str, what: str):
+    """Raise unless ``out`` has ``want``'s shape and ``dtype``, every
+    element within its limit and the RMS share within
+    ``ATTENTION_RMS_SHARE``. Returns :func:`attention_readings`."""
+    import torch
+
+    limit = ATTENTION_RMS_SHARE[dtype]
+    err, reading, share = attention_readings(out, want, dtype)
+    if (out.shape != want.shape or out.dtype != getattr(torch, dtype)
+            or not reading <= 1.0 or not share <= limit):
+        raise AssertionError(
+            f"flash_attention {label}: kernel vs {what}: max err {err} "
+            f"({reading:.3g} of the limit {ATTENTION_TOL[dtype]}·(1 + "
+            f"|plain|)), RMS share {share:.3g} (limit {limit})")
+    return err, reading, share
+
+
+ATTENTION_DESIGN = {"float32": "3xTF32 mma.sync m16n8k8",
+                    "bfloat16": "bf16 mma.sync m16n8k16"}
+
+
 def attention_phase(dev="cuda"):
     """Phase 7: the attention kernel against its plain version on the card
-    at every case of ``ATTENTION_CASES``, within 2e-5 (fp32) / 2e-2 (bf16)
-    absolute and relative; rows with no key exactly 0. Times kernel, plain
-    version and SDPA (where one call fits) and the bound. Returns the
-    per-case rows and the largest error."""
+    at every case of ``ATTENTION_CASES``, within both limits of
+    ``attention_within`` (and, where the plan splits the kv range, against
+    the plain version of the split too); rows with no key exactly 0. Prints
+    each case's design and kv split count; times kernel, plain version and
+    SDPA (where one call fits) and the bound. Returns the per-case rows and
+    the largest error."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -383,19 +444,19 @@ def attention_phase(dev="cuda"):
     rows, max_err = [], 0.0
     for label, shape, dtype, opts in ATTENTION_CASES:
         b, sq, skv, h, kvh, d = shape
-        dt = getattr(torch, dtype)
-        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(dt)
+        q, k, v = attention_inputs(gen, shape, dtype, dev)
+        plan = fa.attention_plan(b, h, sq, skv, causal=opts["causal"],
+                                 window=opts.get("window"),
+                                 q_offset=opts.get("q_offset", 0))
         out = fa.flash_attention_cuda(q, k, v, **opts)
         plain = ref.flash_attention_ref(q, k, v, **opts)
         torch.cuda.synchronize()
-        tol = ATTENTION_TOL[dtype]
-        err = (out.float() - plain.float()).abs()
-        if out.shape != plain.shape or out.dtype != dt or not bool(
-                (err <= tol + tol * plain.float().abs()).all()):
-            raise AssertionError(f"flash_attention {label}: kernel vs plain "
-                                 f"max err {float(err.max())} (tol {tol})")
+        err, reading, share = attention_within(label, out, plain, dtype,
+                                               "plain")
+        if plan.splits > 1:
+            attention_within(label, out, ref.flash_attention_split_ref(
+                q, k, v, fa.split_ranges(plan, skv), **opts), dtype,
+                f"plain {plan.splits}-piece split")
         mask = ref.attention_mask(sq, skv, causal=opts["causal"],
                                   window=opts.get("window"),
                                   q_offset=opts.get("q_offset", 0),
@@ -404,7 +465,7 @@ def attention_phase(dev="cuda"):
         if bool(dead.any()) and not bool((out[:, dead] == 0).all()):
             raise AssertionError(f"flash_attention {label}: a row with no "
                                  "key is not 0")
-        max_err = max(max_err, float(err.max()))
+        max_err = max(max_err, err)
         pairs = attention_pairs(sq, skv, opts["causal"], opts.get("window"),
                                 opts.get("q_offset", 0))
         bound_ms, bound_by = attention_bound_ms(shape, q.element_size(),
@@ -414,8 +475,10 @@ def attention_phase(dev="cuda"):
                    float((lib().float() - plain.float()).abs().max()))
         del out, plain
         row = {"case": label, "shape_b_sq_skv_h_kv_d": list(shape),
-               "dtype": dtype, "options": opts, "max_abs_err": float(
-                   err.max()), "dead_rows": int(dead.sum()),
+               "dtype": dtype, "options": opts, "max_abs_err": err,
+               "dead_rows": int(dead.sum()), "tol_reading": reading,
+               "rms_share": share, "design": ATTENTION_DESIGN[dtype],
+               "kv_splits": plan.splits,
                "pairs_per_head": pairs,
                "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v,
                                                              **opts)),
@@ -426,13 +489,15 @@ def attention_phase(dev="cuda"):
                "library_max_abs_err": lib_err}
         rows.append(row)
         log("attention", "{case} {shape_b_sq_skv_h_kv_d} {dtype} {options}: "
-            "max err {max_abs_err:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms,"
-            " SDPA {library_ms}), bound {bound_ms:.4f} ms ({bound_by})"
-            .format(**row))
+            "{design}, {kv_splits} kv piece(s); max err {max_abs_err:.3g} "
+            "({tol_reading:.3g} of the limit), RMS share {rms_share:.3g}, "
+            "{ms:.4f} ms (plain {plain_ms:.4f} ms, SDPA {library_ms}), bound "
+            "{bound_ms:.4f} ms ({bound_by})".format(**row))
         del q, k, v
         torch.cuda.empty_cache()
     log("attention", f"kernel within tolerance of its plain version in all "
-        f"{len(rows)} cases (2e-5 fp32, 2e-2 bf16); max_abs_err {max_err}")
+        f"{len(rows)} cases (2e-5 fp32, 2e-2 bf16; RMS shares "
+        f"{ATTENTION_RMS_SHARE}); max_abs_err {max_err}")
     return rows, max_err
 
 
@@ -581,6 +646,11 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
     ws = gemm_weights(params)
     if [tuple(w.shape) for w in ws] != [(k, n) for _, n, k in gemms]:
         raise AssertionError("weights do not match vision_gemms")
+    plans = [(mxf.fused_plan(m, n, k)[0],
+              *(p[0] for p in mxf.pair_plans(m, n, k))) for m, n, k in gemms]
+    log("gemm", "contraction pieces S per GEMM (M, N, K): forward / pair dX "
+        "/ pair dW: " + "; ".join(f"{shape} {f}/{dx}/{dw}" for shape,
+                                   (f, dx, dw) in zip(gemms, plans)))
     gen = torch.Generator(device=dev).manual_seed(6)
     acts = [torch.randn((m, k), generator=gen, device=dev)
             for m, _, k in gemms]
@@ -798,6 +868,17 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
         log("gemm", "{name} {precision} at (M, N, K) = {shape_mnk}: "
             "{ms:.4f} ms (plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
             "({bound_by})".format(**row))
+        if name == "mx_matmul_bwd_pair":
+            # The pair's two GEMMs alone: bitwise fused(g, w^T) and
+            # fused(x^T, g).
+            row["dx_ms"] = time_ms(
+                lambda: mxf.mx_matmul_fused_cuda(g, w.T, "mx9", "mx9"))
+            row["dw_ms"] = time_ms(
+                lambda: mxf.mx_matmul_fused_cuda(a.T, g, "mx9", "mx9"))
+            row["pieces_dx_dw"] = list(plans[big][1:])
+            log("gemm", "mx_matmul_bwd_pair's GEMMs alone, as fused launches: "
+                "dX {dx_ms:.4f} ms, dW {dw_ms:.4f} ms; pieces dX/dW "
+                "{pieces_dx_dw}".format(**row))
     train_ms = pass_ms(
         [fn for a, w, g in zip(acts, ws, cots) for fn in (
             lambda a=a, w=w: mxf.mx_matmul_fused_cuda(a, w, "mx9", "mx9"),

@@ -16,6 +16,10 @@ from typing import Union
 import torch
 
 DEFAULT_DEVICE = "cuda"
+# Streaming multiprocessors of an H100 SXM: the kernels' split plans
+# (mx_matmul.gemm_split_plan, flash_attention.attention_plan) size their
+# grids for it.
+SMS = 132
 
 DeviceLike = Union[str, torch.device, None]
 

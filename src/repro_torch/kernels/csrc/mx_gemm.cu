@@ -33,17 +33,27 @@
 // skipped); the 8/128 padding of the Pallas path is TPU tiling and is not
 // needed here.
 //
-// Numerics. Every output is one fp32 FMA chain over k = 0, 1, ..., Kp-1 in
-// that order, starting from 0: no split-K, no atomics. So a result repeats
-// bit for bit from run to run and does not depend on the tiling, and since
-// all four kernels share the loop, the JAX package's contracts hold
-// bitwise on the card:
+// Numerics. Long contractions are split in a fixed order. The wrapper
+// chooses, from the GEMM's shape alone (mx_matmul.py::gemm_split_plan, a
+// pure function of (M, N, Kp)), S chunks of the contraction whose
+// boundaries fall on multiples of 16, so every MX block quantized along
+// the contraction stays whole; S = 1 wherever the output's tiles fill the
+// card. Each partial is one fp32 FMA chain over its chunk, k in order,
+// starting from 0; a second kernel (split_reduce_kernel) adds the S
+// partials in the order s = 0, 1, ..., S-1. No atomics. So a result
+// repeats bit for bit from run to run; it depends on the shape-chosen
+// chunking, not on the tiling. Since all four kernels share the driver
+// and the plan, the JAX package's contracts hold bitwise on the card:
 //   fused(a, b) == mx(quantize(a), quantize_rhs(b)) == prequant(a,
 //   quantize_rhs(b)), and bwd_pair(g, x, w) == (fused(g, w^T),
-//   fused(x^T, g)).
+//   fused(x^T, g)) — the pair's dW and fused(x^T, g) see the same
+//   (K, N, Mp), so the same chunks.
 // A product of two dequantized MX values (at most 8 significant bits
 // each) is exact in fp32 outside the denormal range, so the kernels
-// differ from the plain version's matmul only by summation order.
+// differ from the plain version's matmul only by summation order; a
+// chunked sum is one more summation order, so the limits
+// 2·Kp·2⁻²⁴·(|A_q| @ |B_q|) and 4·√Kp·2⁻²⁴·√(A_q² @ B_q²) of ref.py::
+// gemm_error_limits still cover it.
 //
 // Bound (H100 SXM, NVIDIA data sheet). The least time is the larger of
 //   operations: 2 M N K (4 M N K for the pair) over 989 TFLOP/s — the
@@ -53,12 +63,12 @@
 //       1 + 2/16 bytes, the fp32 output once, over 3.35 TB/s.
 // For ResNet18's GEMMs at batch 32 the bytes bound: with fp32 operands
 // and N <= 1000 they carry fewer operations per byte than the ~295 the
-// bf16 rate needs. What this simple design does about either bound:
-// nothing yet. It runs on the CUDA cores, whose fp32 peak is 67 TFLOP/s,
-// with no software pipelining; a GEMM whose output has few tiles but a
-// long contraction (the pair's dW, contracted over M) runs on few SMs.
-// wgmma on bf16 tiles fed by TMA, and a fixed-order split of long
-// contractions, are left to later work.
+// bf16 rate needs. What this design does about either bound: it runs on
+// the CUDA cores, whose fp32 peak is 67 TFLOP/s, with no software
+// pipelining; the split keeps the SMs busy where the output has few
+// tiles (the pair's dW, contracted over M = 401,408, has 2 tiles at
+// ResNet18's stem at batch 32). wgmma on bf16 tiles fed by TMA is later
+// work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -168,28 +178,42 @@ struct RhsMX {
   }
 };
 
-// One GEMM: C [M, N] (row-major, ld N) over a contraction of length K.
+// One GEMM: C [M, N] (row-major, ld N) over a contraction of length K,
+// split into `split` chunks of `chunk` (a multiple of 16). With split = 1
+// the tiles write C; otherwise chunk s writes its partial to ws[s] [M, N]
+// and split_reduce_kernel sums them into C.
 template <class A, class B>
 struct Gemm {
   A a;
   B b;
   float* c;
+  float* ws;
   int M, N, K;
-  int tiles_n, tiles;
+  int split, chunk;
+  int tiles_n, tiles;  // tiles of C
+  int ctas;            // tiles * split
 };
 
 template <class A, class B>
-Gemm<A, B> make_gemm(A a, B b, void* c, int M, int N, int K) {
+Gemm<A, B> make_gemm(A a, B b, void* c, int M, int N, int K, int split,
+                     int chunk, void* ws) {
   int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
-  return Gemm<A, B>{a, b, (float*)c, M, N, K, tiles_n, tiles_m * tiles_n};
+  int tiles = tiles_m * tiles_n;
+  return Gemm<A, B>{a, b, (float*)c, (float*)ws, M, N, K, split, chunk,
+                    tiles_n, tiles, tiles * split};
 }
 
-template <class A, class B>
-__device__ __forceinline__ void gemm_tile(const Gemm<A, B>& g, int tile,
+// CTA `cta` computes chunk cta / tiles of tile cta % tiles: the tiles of
+// one chunk are neighbours in the grid, so they share its rhs rows in L2.
+// kSplit = false (split = 1) is the whole contraction into C.
+template <bool kSplit, class A, class B>
+__device__ __forceinline__ void gemm_tile(const Gemm<A, B>& g, int cta,
                                           float (&As)[kBK][kBM],
                                           float (&Bs)[kBK][kBN]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
+  const int s = kSplit ? cta / g.tiles : 0;
+  const int tile = kSplit ? cta % g.tiles : cta;
   const int m0 = (tile / g.tiles_n) * kBM, n0 = (tile % g.tiles_n) * kBN;
   float acc[8][8];
 #pragma unroll
@@ -198,7 +222,10 @@ __device__ __forceinline__ void gemm_tile(const Gemm<A, B>& g, int tile,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   }
   const int kp = (g.K + kBK - 1) / kBK * kBK;
-  for (int k0 = 0; k0 < kp; k0 += kBK) {
+  const int k_begin = kSplit ? s * g.chunk : 0;
+  const int k_end =
+      kSplit ? (int)min((long long)kp, (long long)(s + 1) * g.chunk) : kp;
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     float v[kBK];
     if (tid < kBM) {
       g.a.load(m0 + tid, g.M, k0, g.K, v);
@@ -227,11 +254,12 @@ __device__ __forceinline__ void gemm_tile(const Gemm<A, B>& g, int tile,
     }
     __syncthreads();
   }
+  float* out = kSplit ? g.ws + (long long)s * g.M * g.N : g.c;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (m >= g.M) continue;
-    float* row = g.c + (long long)m * g.N;
+    float* row = out + (long long)m * g.N;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
@@ -240,16 +268,27 @@ __device__ __forceinline__ void gemm_tile(const Gemm<A, B>& g, int tile,
   }
 }
 
-// One GEMM; a 1-D grid of its tiles, row-major over (tile_m, tile_n) so
-// neighbouring blocks share an lhs row panel in L2.
-template <class A, class B>
+// One GEMM; a 1-D grid of its (tile, chunk) CTAs, tiles row-major over
+// (tile_m, tile_n) so neighbouring blocks share an lhs row panel in L2.
+template <bool kSplit, class A, class B>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(Gemm<A, B> g) {
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
-  gemm_tile(g, blockIdx.x, As, Bs);
+  gemm_tile<kSplit>(g, blockIdx.x, As, Bs);
 }
 
-// The backward pair in one launch: the grid covers the tiles of dX, then
+template <class A, class B>
+__device__ __forceinline__ void any_tile(const Gemm<A, B>& g, int cta,
+                                         float (&As)[kBK][kBM],
+                                         float (&Bs)[kBK][kBN]) {
+  if (g.split == 1) {
+    gemm_tile<false>(g, cta, As, Bs);
+  } else {
+    gemm_tile<true>(g, cta, As, Bs);
+  }
+}
+
+// The backward pair in one launch: the grid covers the CTAs of dX, then
 // those of dW, and a block computes the GEMM its index falls in — the
 // Hopper form of the Pallas kernel's two-phase 1-D grid.
 template <class A1, class B1, class A2, class B2>
@@ -258,17 +297,43 @@ pair_kernel(Gemm<A1, B1> g1, Gemm<A2, B2> g2) {
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
   const int t = blockIdx.x;
-  if (t < g1.tiles) {
-    gemm_tile(g1, t, As, Bs);
+  if (t < g1.ctas) {
+    any_tile(g1, t, As, Bs);
   } else {
-    gemm_tile(g2, t - g1.tiles, As, Bs);
+    any_tile(g2, t - g1.ctas, As, Bs);
+  }
+}
+
+// c[i] = ws[0][i] + ws[1][i] + ... + ws[split - 1][i], in that order.
+__global__ void split_reduce_kernel(const float* __restrict__ ws,
+                                    float* __restrict__ c, long long mn,
+                                    int split) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < mn; i += (long long)gridDim.x * blockDim.x) {
+    float acc = ws[i];
+    for (int s = 1; s < split; ++s) acc += ws[s * mn + i];
+    c[i] = acc;
   }
 }
 
 template <class A, class B>
+void launch_reduce(const Gemm<A, B>& g, cudaStream_t stream) {
+  if (g.split == 1 || g.tiles == 0) return;
+  const long long mn = (long long)g.M * g.N;
+  const int threads = 256;
+  const long long blocks = min((mn + threads - 1) / threads, 8LL * 1024);
+  split_reduce_kernel<<<(int)blocks, threads, 0, stream>>>(g.ws, g.c, mn,
+                                                           g.split);
+}
+
+template <class A, class B>
 int launch(const Gemm<A, B>& g, void* stream) {
-  if (g.tiles > 0) {
-    gemm_kernel<A, B><<<g.tiles, kThreads, 0, (cudaStream_t)stream>>>(g);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g.ctas > 0 && g.split == 1) {
+    gemm_kernel<false, A, B><<<g.ctas, kThreads, 0, s>>>(g);
+  } else if (g.ctas > 0) {
+    gemm_kernel<true, A, B><<<g.ctas, kThreads, 0, s>>>(g);
+    launch_reduce(g, s);
   }
   return (int)cudaGetLastError();
 }
@@ -278,18 +343,21 @@ int launch(const Gemm<A, B>& g, void* stream) {
 // Plain C interface, loaded with ctypes. Every function launches on
 // `stream` and returns cudaGetLastError() (0 on success); nothing here
 // synchronizes or allocates. Outputs are row-major fp32. Precisions are
-// mantissa bits (2 / 4 / 7). The wrapper checks devices, types, shapes
-// and the 16-byte alignment of MX mantissa rows.
+// mantissa bits (2 / 4 / 7). (split, chunk, ws) is the GEMM's split of
+// its contraction (mx_matmul.py::gemm_split_plan) and, where split > 1,
+// an fp32 workspace [split, M, N]. The wrapper checks devices, types,
+// shapes and the 16-byte alignment of MX mantissa rows.
 
 // Unfused: lhs MXTensor K-last (mantissa [M, Kp]), rhs MXTensor K-first
 // (mantissa [Kp, N]) -> c [M, N].
 extern "C" int mx_gemm_mx(const void* lm, const void* le, const void* lx,
                           int mb_a, const void* rm, const void* re,
                           const void* rx, int mb_b, void* c, int M, int N,
-                          int Kp, void* stream) {
+                          int Kp, int split, int chunk, void* ws,
+                          void* stream) {
   LhsMX a{(const int8_t*)lm, (const int8_t*)le, (const uint8_t*)lx, Kp, mb_a};
   RhsMX b{(const int8_t*)rm, (const int8_t*)re, (const uint8_t*)rx, N, mb_b};
-  return launch(make_gemm(a, b, c, M, N, Kp), stream);
+  return launch(make_gemm(a, b, c, M, N, Kp, split, chunk, ws), stream);
 }
 
 // Fused: fp32 a (element (m, k) at a[m * sam + k * sak]) and fp32 b
@@ -297,10 +365,11 @@ extern "C" int mx_gemm_mx(const void* lm, const void* le, const void* lx,
 extern "C" int mx_gemm_fused(const void* a, long long sam, long long sak,
                              int mb_a, const void* b, long long sbk,
                              long long sbn, int mb_b, void* c, int M, int N,
-                             int K, void* stream) {
+                             int K, int split, int chunk, void* ws,
+                             void* stream) {
   LhsF32 la{(const float*)a, sam, sak, mb_a};
   RhsF32 rb{(const float*)b, sbk, sbn, mb_b};
-  return launch(make_gemm(la, rb, c, M, N, K), stream);
+  return launch(make_gemm(la, rb, c, M, N, K, split, chunk, ws), stream);
 }
 
 // Weight-resident serving: fp32 a quantized in-tile, a stored rhs-layout
@@ -308,10 +377,11 @@ extern "C" int mx_gemm_fused(const void* a, long long sam, long long sak,
 extern "C" int mx_gemm_prequant(const void* a, long long sam, long long sak,
                                 int mb_a, const void* rm, const void* re,
                                 const void* rx, int mb_b, void* c, int M,
-                                int N, int K, void* stream) {
+                                int N, int K, int split, int chunk, void* ws,
+                                void* stream) {
   LhsF32 la{(const float*)a, sam, sak, mb_a};
   RhsMX b{(const int8_t*)rm, (const int8_t*)re, (const uint8_t*)rx, N, mb_b};
-  return launch(make_gemm(la, b, c, M, N, K), stream);
+  return launch(make_gemm(la, b, c, M, N, K, split, chunk, ws), stream);
 }
 
 // Backward pair of y = x @ w: g [M, N], x [M, K], w [K, N], row-major.
@@ -321,18 +391,25 @@ extern "C" int mx_gemm_prequant(const void* a, long long sam, long long sak,
 //       quantized along M; g read as an rhs, quantized in 16-row slabs
 //       along M — the same cotangent quantized a second time, along the
 //       other axis, as the Pallas kernel does.
+// One launch covers the (tile, chunk) CTAs of both; a reduce launch
+// follows for each GEMM whose split is above 1.
 extern "C" int mx_gemm_bwd_pair(const void* g, const void* x, const void* w,
                                 int mb, void* dx, void* dw, int M, int N,
-                                int K, void* stream) {
+                                int K, int split_dx, int chunk_dx,
+                                void* ws_dx, int split_dw, int chunk_dw,
+                                void* ws_dw, void* stream) {
   LhsF32 g_lhs{(const float*)g, N, 1, mb};
   RhsF32 wt_rhs{(const float*)w, 1, N, mb};
   LhsF32 xt_lhs{(const float*)x, 1, K, mb};
   RhsF32 g_rhs{(const float*)g, N, 1, mb};
-  auto g1 = make_gemm(g_lhs, wt_rhs, dx, M, K, N);
-  auto g2 = make_gemm(xt_lhs, g_rhs, dw, K, N, M);
-  int tiles = g1.tiles + g2.tiles;
-  if (tiles > 0) {
-    pair_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(g1, g2);
+  auto g1 = make_gemm(g_lhs, wt_rhs, dx, M, K, N, split_dx, chunk_dx, ws_dx);
+  auto g2 = make_gemm(xt_lhs, g_rhs, dw, K, N, M, split_dw, chunk_dw, ws_dw);
+  cudaStream_t s = (cudaStream_t)stream;
+  int ctas = g1.ctas + g2.ctas;
+  if (ctas > 0) {
+    pair_kernel<<<ctas, kThreads, 0, s>>>(g1, g2);
+    launch_reduce(g1, s);
+    launch_reduce(g2, s);
   }
   return (int)cudaGetLastError();
 }

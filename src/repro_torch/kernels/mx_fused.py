@@ -18,7 +18,10 @@ design are in the source's header. fp16/bf16 operands are widened to fp32
 here (exact), as the reference does with ``astype(float32)``; fp32
 operands of the fused and prequant GEMMs are read through their strides,
 so a transposed view costs no copy. K need not be a multiple of 16: the
-kernels zero-pad it themselves, with blocks aligned from k = 0.
+kernels zero-pad it themselves, with blocks aligned from k = 0. Every
+launch takes its GEMM's split of the contraction (``fused_plan``,
+``pair_plans``: ``mx_matmul.gemm_split_plan`` of the GEMM's shape), with
+the fp32 workspace of the partials allocated here.
 
 Only a CUDA tensor reaches these wrappers (``kernels/ops.py`` routes a CPU
 tensor to the plain version); they raise on anything they do not take and
@@ -31,8 +34,22 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import mx_quantize as _mq
-from repro_torch.kernels.mx_matmul import check_dims, require_planes
+from repro_torch.kernels.mx_matmul import (check_dims, gemm_split_plan,
+                                           plan_args, require_planes)
 from repro_torch.kernels.ref import BLOCK, MANTISSA_BITS, MXTensor
+
+
+def fused_plan(m: int, n: int, k: int) -> Tuple[int, int]:
+    """The split of the contraction of a [m, k] @ [k, n] GEMM: that of
+    the fused, the prequant and the unfused kernel alike."""
+    return gemm_split_plan(m, n, -(-k // BLOCK) * BLOCK)
+
+
+def pair_plans(m: int, n: int, k: int):
+    """The splits of the pair's dX [m, k] (contracted over n) and dW
+    [k, n] (over m) for g [m, n]: those of fused(g, w^T) and
+    fused(x^T, g), so the pair equals the two fused GEMMs bitwise."""
+    return fused_plan(m, k, n), fused_plan(k, n, m)
 
 
 def _f32(t: torch.Tensor, what: str) -> torch.Tensor:
@@ -61,11 +78,12 @@ def mx_matmul_fused_cuda(a: torch.Tensor, b: torch.Tensor, precision_a: str,
     (m, k), n = a.shape, b.shape[1]
     check_dims(m, n, k)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    split, _ws = plan_args(m, n, fused_plan(m, n, k), a.device)
     lib = _mq.load()
     code = _mq.launch(
         lib.mx_gemm_fused, a.device, a.data_ptr(), a.stride(0), a.stride(1),
         MANTISSA_BITS[precision_a], b.data_ptr(), b.stride(0), b.stride(1),
-        MANTISSA_BITS[precision_b], out.data_ptr(), m, n, k)
+        MANTISSA_BITS[precision_b], out.data_ptr(), m, n, k, *split)
     _mq.check(lib, code, "mx_matmul_fused")
     if m * n:
         _mq.count_launch("mx_matmul_fused")
@@ -93,11 +111,14 @@ def mx_matmul_bwd_pair_cuda(g: torch.Tensor, x: torch.Tensor,
     check_dims(m, n, k)
     dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
     dw = torch.empty((k, n), dtype=torch.float32, device=g.device)
+    plan_dx, plan_dw = pair_plans(m, n, k)
+    split_dx, _ws_dx = plan_args(m, k, plan_dx, g.device)
+    split_dw, _ws_dw = plan_args(k, n, plan_dw, g.device)
     lib = _mq.load()
     code = _mq.launch(
         lib.mx_gemm_bwd_pair, g.device, g.data_ptr(), x.data_ptr(),
         w.data_ptr(), MANTISSA_BITS[precision], dx.data_ptr(), dw.data_ptr(),
-        m, n, k)
+        m, n, k, *split_dx, *split_dw)
     _mq.check(lib, code, "mx_matmul_bwd_pair")
     if m * k + k * n:
         _mq.count_launch("mx_matmul_bwd_pair")
@@ -123,12 +144,13 @@ def mx_matmul_prequant_cuda(a: torch.Tensor, qb: MXTensor,
         raise ValueError("a and the weight on different devices")
     require_planes(qb, kp // BLOCK, n, "mx_matmul_prequant_cuda weight")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    split, _ws = plan_args(m, n, fused_plan(m, n, k), a.device)
     lib = _mq.load()
     code = _mq.launch(
         lib.mx_gemm_prequant, a.device, a.data_ptr(), a.stride(0),
         a.stride(1), MANTISSA_BITS[precision_a], rm.data_ptr(),
         qb.exponent.data_ptr(), qb.mx_bits.data_ptr(),
-        MANTISSA_BITS[qb.precision], out.data_ptr(), m, n, k)
+        MANTISSA_BITS[qb.precision], out.data_ptr(), m, n, k, *split)
     _mq.check(lib, code, "mx_matmul_prequant")
     if m * n:
         _mq.count_launch("mx_matmul_prequant")

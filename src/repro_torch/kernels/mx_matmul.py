@@ -11,15 +11,57 @@ counters and the shared checks live in ``mx_quantize.py``.
 Only a CUDA tensor reaches this wrapper (``kernels/ops.py`` routes a CPU
 tensor to the plain version); it raises on anything it does not take and
 when the launch reports an error — there is no fallback.
+
+``gemm_split_plan`` is the split of long contractions that all four GEMM
+kernels share: a pure function of the GEMM's shape, so two kernels that
+compute the same product split it alike and agree bit for bit.
 """
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import torch
 
+from repro_torch.device import SMS
 from repro_torch.kernels import mx_quantize as _mq
 from repro_torch.kernels.ref import BLOCK, MANTISSA_BITS, MXTensor
 
 INT32_MAX = 2 ** 31 - 1
+TILE = 128  # the GEMM kernel's output tile is TILE x TILE
+WAVE_CTAS = 2 * SMS  # two 256-thread GEMM CTAs fit on an SM
+MIN_CHUNK_BLOCKS = 32  # at least 512 of the contraction per (tile, chunk)
+
+
+def gemm_split_plan(m: int, n: int, kp: int) -> Tuple[int, int]:
+    """(S, chunk): the contraction [0, kp) of an [m, n] output, kp a
+    multiple of 16, cut into S chunks of ``chunk`` (a multiple of 16; the
+    last may be shorter). S = 1 where the output's TILE x TILE tiles fill
+    the card; otherwise enough chunks for two CTAs on every SM, each at
+    least MIN_CHUNK_BLOCKS MX blocks long."""
+    blocks = kp // BLOCK
+    tiles = -(-m // TILE) * -(-n // TILE)
+    if tiles >= SMS or blocks < 2 * MIN_CHUNK_BLOCKS:
+        return 1, kp
+    splits = min(-(-WAVE_CTAS // tiles), blocks // MIN_CHUNK_BLOCKS)
+    chunk_blocks = -(-blocks // splits)
+    return -(-blocks // chunk_blocks), chunk_blocks * BLOCK
+
+
+def split_chunks(kp: int, splits: int, chunk: int) -> List[Tuple[int, int]]:
+    """The [lo, hi) contraction ranges of a plan, in the order s = 0..S-1."""
+    return [(s * chunk, min(kp, (s + 1) * chunk)) for s in range(splits)]
+
+
+def plan_args(m: int, n: int, plan: Tuple[int, int],
+              device: torch.device):
+    """The (S, chunk, workspace pointer) a GEMM launch takes for an [m, n]
+    output split by ``plan``, and the fp32 workspace of the S partials
+    [S, m, n] (None where S = 1: the tiles write the output directly),
+    which the caller keeps alive until the launch is queued."""
+    splits, chunk = plan
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=device)
+          if splits > 1 else None)
+    return (splits, chunk, 0 if ws is None else ws.data_ptr()), ws
 
 
 def check_dims(*dims: int) -> None:
@@ -61,12 +103,13 @@ def mx_matmul_cuda(lhs: MXTensor, rhs: MXTensor) -> torch.Tensor:
     require_planes(lhs, m, kp // BLOCK, "mx_matmul_cuda lhs")
     require_planes(rhs, kp // BLOCK, n, "mx_matmul_cuda rhs")
     out = torch.empty((m, n), dtype=torch.float32, device=lm.device)
+    split, _ws = plan_args(m, n, gemm_split_plan(m, n, kp), lm.device)
     lib = _mq.load()
     code = _mq.launch(
         lib.mx_gemm_mx, lm.device, lm.data_ptr(), lhs.exponent.data_ptr(),
         lhs.mx_bits.data_ptr(), MANTISSA_BITS[lhs.precision], rm.data_ptr(),
         rhs.exponent.data_ptr(), rhs.mx_bits.data_ptr(),
-        MANTISSA_BITS[rhs.precision], out.data_ptr(), m, n, kp)
+        MANTISSA_BITS[rhs.precision], out.data_ptr(), m, n, kp, *split)
     _mq.check(lib, code, "mx_matmul")
     if m * n:
         _mq.count_launch("mx_matmul")

@@ -169,6 +169,20 @@ def gemm_error_limits(aq: torch.Tensor, bq_nk: torch.Tensor):
     return worst, typical
 
 
+def mx_matmul_split_ref(aq: torch.Tensor, bq_nk: torch.Tensor,
+                        chunks) -> torch.Tensor:
+    """The kernels' split of a long contraction, in plain PyTorch: one
+    fp32 matmul of the dequantized operands ``aq [M, Kp]`` and
+    ``bq_nk [N, Kp]`` per contraction chunk ``[lo, hi)`` of ``chunks``
+    (``mx_matmul.split_chunks``), then the partials added in the fixed
+    order s = 0..S-1 (csrc/mx_gemm.cu::split_reduce_kernel)."""
+    out = None
+    for lo, hi in chunks:
+        part = _matmul_nt(aq[:, lo:hi], bq_nk[:, lo:hi])
+        out = part if out is None else out + part
+    return out
+
+
 def mx_matmul_ref(lhs: MXTensor, rhs: MXTensor) -> torch.Tensor:
     """[M, K] @ [N, K]^T -> [M, N] fp32 (both quantized along K)."""
     return _matmul_nt(mx_dequantize_ref(lhs), mx_dequantize_ref(rhs))
@@ -241,10 +255,10 @@ def attention_mask(sq: int, skv: int, *, causal: bool, window, q_offset: int,
     return mask
 
 
-def _attention_scores(q, k, *, causal, window, softcap, scale, q_offset):
-    """Unnormalized probabilities P̃ [B, Kv, G, Sq, Skv], their row sums
-    (floored at 1e-30), tanh(s / softcap) (or None) and the resolved
-    scale. Query head h uses kv head h // G."""
+def _masked_logits(q, k, *, causal, window, softcap, scale, q_offset):
+    """Logits [B, Kv, G, Sq, Skv] masked with ``NEG_INF``, the mask [Sq,
+    Skv], tanh(s / softcap) (or None) and the resolved scale. Query head h
+    uses kv head h // G."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if h % kvh:
@@ -260,7 +274,16 @@ def _attention_scores(q, k, *, causal, window, softcap, scale, q_offset):
         s = softcap * tanh
     mask = attention_mask(sq, skv, causal=causal, window=window,
                           q_offset=q_offset, device=q.device)
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), mask, tanh, scale
+
+
+def _attention_scores(q, k, *, causal, window, softcap, scale, q_offset):
+    """Unnormalized probabilities P̃ [B, Kv, G, Sq, Skv], their row sums
+    (floored at 1e-30), tanh(s / softcap) (or None) and the resolved
+    scale."""
+    s, mask, tanh, scale = _masked_logits(
+        q, k, causal=causal, window=window, softcap=softcap, scale=scale,
+        q_offset=q_offset)
     p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
     return p, p.sum(-1, keepdim=True).clamp_min(1e-30), tanh, scale
 
@@ -275,6 +298,55 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    softcap=softcap, scale=scale,
                                    q_offset=q_offset)
     o = torch.einsum("bkgqt,btkd->bkgqd", p, v.to(p.dtype)) / l
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, ranges, *, causal: bool = True,
+                              window=None, softcap=None, scale=None,
+                              q_offset: int = 0) -> torch.Tensor:
+    """The kernel's kv split (csrc/flash_attention.cu) in plain PyTorch:
+    the partials of :func:`flash_attention_partials` merged by
+    :func:`combine_partials`."""
+    return combine_partials(flash_attention_partials(
+        q, k, v, ranges, causal=causal, window=window, softcap=softcap,
+        scale=scale, q_offset=q_offset), q)
+
+
+def flash_attention_partials(q, k, v, ranges, *, causal: bool = True,
+                             window=None, softcap=None, scale=None,
+                             q_offset: int = 0):
+    """The split's first launch: for each non-empty piece ``[lo, hi)`` of
+    ``ranges`` (``flash_attention.split_ranges``) the partial (m_s, l_s,
+    O_s) over its keys — m_s, l_s [B, Kv, G, Sq, 1], O_s [B, Kv, G, Sq, D]
+    unnormalized; a row with no key in the piece has m_s = NEG_INF, l_s =
+    0, O_s = 0."""
+    s, mask, _, _ = _masked_logits(q, k, causal=causal, window=window,
+                                   softcap=softcap, scale=scale,
+                                   q_offset=q_offset)
+    vf = v.to(s.dtype)
+    parts = []
+    for lo, hi in ranges:
+        s_piece = s[..., lo:hi]
+        m_s = s_piece.amax(-1, keepdim=True)
+        p = torch.where(mask[:, lo:hi], torch.exp(s_piece - m_s), 0.0)
+        parts.append((m_s, p.sum(-1, keepdim=True),
+                      torch.einsum("bkgqt,btkd->bkgqd", p, vf[:, lo:hi])))
+    return parts
+
+
+def combine_partials(parts, q: torch.Tensor) -> torch.Tensor:
+    """The split's second launch: the partials merged in the fixed order
+    s = 0..S-1, m = max m_s, l = Σ l_s·e^(m_s − m), O = Σ O_s·e^(m_s − m) /
+    max(l, 1e-30), as [B, Sq, H, D] in q's dtype. A row whose every piece
+    has l = 0 comes out 0."""
+    m = torch.stack([m_s for m_s, _, _ in parts]).amax(0)
+    l, o = 0.0, 0.0
+    for m_s, l_s, o_s in parts:
+        w = torch.exp(m_s - m)
+        l, o = l + l_s * w, o + o_s * w
+    o = o / torch.as_tensor(l).clamp_min(1e-30)
+    b, sq, h, d = q.shape
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 

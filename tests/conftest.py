@@ -8,3 +8,9 @@ os.environ.setdefault("JAX_ENABLE_X64", "0")
 import jax  # noqa: E402
 
 jax.config.update("jax_default_matmul_precision", "float32")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the hand-written kernels); "
+        "skips without one")

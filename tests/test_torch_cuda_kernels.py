@@ -1,0 +1,185 @@
+"""The hand-written kernels on the card, beyond ``chip_smoke.py``'s shapes:
+every head dim and dtype of the attention kernel over its options (ragged
+edges, windows with and without causality, query offsets, kv splits with
+fully masked rows, strided and misaligned inputs), and the MX GEMMs where
+their contractions split, each held to its plain version (``kernels/ref.py``)
+with the tolerances of ``chip_smoke.py`` phases 6–7, and each repeated to
+show that the fixed-order splits give the same bits.
+
+Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip without a card.
+On the card (``--noconftest``: ``tests/conftest.py`` imports JAX, which the
+port's card machine does not have):
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_kernels.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mx_fused as mxf
+from repro_torch.kernels import mx_matmul as mxm
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only "
+                    "there")
+    return torch.device("cuda")
+
+
+def _qkv(shape, d, dtype, dev, seed=0):
+    b, sq, skv, h, kvh = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
+
+
+def _assert_attention(out, q, k, v, opts):
+    b, sq, h, _ = q.shape
+    skv = k.shape[1]
+    tol = ATTENTION_TOL[q.dtype]
+    plan = fa.attention_plan(b, h, sq, skv, causal=opts["causal"],
+                             window=opts.get("window"),
+                             q_offset=opts.get("q_offset", 0))
+    wants = [ref.flash_attention_ref(q, k, v, **opts)]
+    if plan.splits > 1:
+        wants.append(ref.flash_attention_split_ref(
+            q, k, v, fa.split_ranges(plan, skv), **opts))
+    for want in wants:
+        assert out.shape == want.shape and out.dtype == want.dtype
+        err = (out.float() - want.float()).abs()
+        assert bool((err <= tol + tol * want.float().abs()).all()), float(
+            err.max())
+    dead = ~ref.attention_mask(sq, skv, causal=opts["causal"],
+                               window=opts.get("window"),
+                               q_offset=opts.get("q_offset", 0),
+                               device=q.device).any(-1)
+    assert bool((out[:, dead] == 0).all())
+    return plan
+
+
+# (B, Sq, Skv, H, Kv), options, and the kv pieces the plan gives.
+ATTENTION_CASES = {
+    "ragged non-causal": ((2, 70, 70, 4, 2), dict(causal=False), 1),
+    "ragged causal": ((2, 70, 70, 4, 2), dict(causal=True), 1),
+    "window softcap": ((1, 150, 150, 4, 4),
+                       dict(causal=True, window=40, softcap=20.0), 1),
+    "window only": ((1, 130, 130, 2, 1), dict(causal=False, window=33), 1),
+    "offset, Sq < Skv": ((1, 40, 200, 4, 2),
+                         dict(causal=True, q_offset=160), 1),
+    "decode split": ((1, 16, 1024, 2, 1), dict(causal=True, q_offset=1008),
+                     4),
+    "decode split window": ((1, 16, 1024, 2, 1),
+                            dict(causal=True, window=600, q_offset=1008), 2),
+    "split, masked rows": ((1, 1032, 1024, 2, 2),
+                           dict(causal=True, q_offset=-8), 4),
+}
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ATTENTION_CASES))
+def test_attention_matches_plain(card, case, dtype, d):
+    shape, opts, pieces = ATTENTION_CASES[case]
+    q, k, v = _qkv(shape, d, dtype, card)
+    out = fa.flash_attention_cuda(q, k, v, **opts)
+    again = fa.flash_attention_cuda(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert _assert_attention(out, q, k, v, opts).splits == pieces
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_attention_reads_strided_and_copies_misaligned(card, dtype):
+    """The ViT's q, k, v slices of one qkv tensor are read in place; a view
+    whose rows are not 16-byte aligned is copied first. Either way the
+    result is the contiguous call's, bit for bit."""
+    b, s, h, d = 2, 37, 4, 64
+    gen = torch.Generator(device=card).manual_seed(1)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=card).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    want = fa.flash_attention_cuda(*(t.contiguous() for t in (q, k, v)),
+                                   causal=False)
+    assert torch.equal(fa.flash_attention_cuda(q, k, v, causal=False), want)
+    wide = torch.randn((b, s, h, d + 1), generator=gen,
+                       device=card).to(dtype)
+    odd = wide[..., :d]  # rows of d + 1 elements: not 16-byte aligned
+    odd_out = fa.flash_attention_cuda(odd, odd, odd, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(odd_out, fa.flash_attention_cuda(
+        *(odd.contiguous(),) * 3, causal=True))
+    _assert_attention(odd_out, odd, odd, odd, dict(causal=True))
+
+
+def _within_limits(out, plain, aq, bq_nk):
+    worst, typical = ref.gemm_error_limits(aq, bq_nk)
+    err = (out - plain).abs()
+    assert bool(torch.isfinite(out).all())
+    assert bool((err <= worst).all()) and bool((err <= typical).all())
+
+
+def _qd(x, precision):
+    return ref.mx_quant_dequant_ref(ops._pad_last(x, ref.BLOCK)[0]
+                                    .contiguous(), precision)
+
+
+# (M, N, K): few output tiles over a long contraction, so every kernel
+# splits; the second is ragged in M, N and K.
+SPLIT_GEMMS = [(16, 64, 2048), (40, 24, 3000), (300, 200, 1100)]
+
+
+@pytest.mark.parametrize("precision", ["mx6", "mx9"])
+@pytest.mark.parametrize("shape", SPLIT_GEMMS, ids=str)
+def test_split_gemms_match_plain_and_each_other(card, shape, precision):
+    """fused = unfused = prequant bitwise, within both limits of the plain
+    version and of the plain split, and the same bits on a second call."""
+    m, n, k = shape
+    assert mxf.fused_plan(m, n, k)[0] > 1
+    gen = torch.Generator(device=card).manual_seed(2)
+    a = torch.randn((m, k), generator=gen, device=card)
+    b = torch.randn((k, n), generator=gen, device=card)
+    qb = ops.mx_quantize_rhs(b, precision)
+    fused = mxf.mx_matmul_fused_cuda(a, b, precision, precision)
+    prequant = mxf.mx_matmul_prequant_cuda(a, qb, precision)
+    unfused = mxm.mx_matmul_cuda(ops.mx_quantize(a, precision), qb)
+    again = mxf.mx_matmul_fused_cuda(a, b, precision, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, prequant) and torch.equal(fused, unfused)
+    assert torch.equal(fused, again)
+    aq, bq = _qd(a, precision), _qd(b.T, precision)
+    kp = aq.shape[1]
+    _within_limits(fused, ref._matmul_nt(aq, bq), aq, bq)
+    _within_limits(fused, ref.mx_matmul_split_ref(
+        aq, bq, mxm.split_chunks(kp, *mxf.fused_plan(m, n, k))), aq, bq)
+
+
+# g [M, N], x [M, K], w [K, N]: the pair's dW contracts over M and splits.
+PAIR_SHAPES = [(3000, 40, 24), (5000, 64, 147)]
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=str)
+def test_split_pair_equals_two_fused(card, shape):
+    m, n, k = shape
+    assert mxf.pair_plans(m, n, k)[1][0] > 1
+    gen = torch.Generator(device=card).manual_seed(3)
+    g = torch.randn((m, n), generator=gen, device=card)
+    x = torch.randn((m, k), generator=gen, device=card)
+    w = torch.randn((k, n), generator=gen, device=card)
+    dx, dw = mxf.mx_matmul_bwd_pair_cuda(g, x, w, "mx9")
+    dx2, dw2 = mxf.mx_matmul_bwd_pair_cuda(g, x, w, "mx9")
+    torch.cuda.synchronize()
+    assert torch.equal(dx, mxf.mx_matmul_fused_cuda(g, w.T, "mx9", "mx9"))
+    assert torch.equal(dw, mxf.mx_matmul_fused_cuda(x.T, g, "mx9", "mx9"))
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    xq, gq = _qd(x.T, "mx9"), _qd(g.T, "mx9")
+    _within_limits(dw, ref._matmul_nt(xq, gq), xq, gq)
+    gq1, wq = _qd(g, "mx9"), _qd(w, "mx9")
+    _within_limits(dx, ref._matmul_nt(gq1, wq), gq1, wq)
