@@ -32,15 +32,20 @@ exits non-zero without printing a result:
    ``mx_dense`` (forward and backward), MX6 serving through
    ``mx_quantize_rhs`` + ``mx_dense_prequant``, and the unfused
    ``ops.mx_matmul``; 21 launches of each GEMM kernel per pass, all
-   served by "cuda"; prints each GEMM's split of its contraction (pieces
-   S for the forward and the pair's dX and dW); the bitwise contracts
-   fused = unfused = prequant and pair = two fused; every kernel within
+   served by "cuda"; prints each GEMM's tile (BM x BN) and split of its
+   contraction (pieces S for the forward and the pair's dX and dW); the
+   bitwise contracts fused = unfused = prequant and pair = two fused;
+   every kernel within
    the worst summation-order limit 2·Kp·2⁻²⁴·(|A_q| @ |B_q|) and the
    typical limit 4·sqrt(Kp)·2⁻²⁴·sqrt(A_q² @ B_q²) of its plain version,
    on every GEMM and on ragged and zero-block shapes, with an all-zero dW
    and a dW of g quantized along the wrong axis shown to fail the typical
    limit at every GEMM; times at the largest GEMM (the stem; the pair's
-   dX and dW also alone) and of whole passes.
+   dX and dW also alone), of whole passes beside their summed bounds, and
+   of each GEMM's fused and prequant launch beside its bound; as a
+   yardstick only, not the same function, ``torch.matmul`` in bf16 on the
+   stem's pre-dequantized operands (``library_ms`` stays null: no PyTorch
+   call computes an MX GEMM).
 7. attention — the flash-attention kernel against its plain version on
    the card, within 2e-5 (fp32) / 2e-2 (bf16) absolute and relative and
    with the error's RMS within 2^-12 (fp32) / 2^-6 (bf16) of the plain
@@ -648,9 +653,10 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
         raise AssertionError("weights do not match vision_gemms")
     plans = [(mxf.fused_plan(m, n, k)[0],
               *(p[0] for p in mxf.pair_plans(m, n, k))) for m, n, k in gemms]
-    log("gemm", "contraction pieces S per GEMM (M, N, K): forward / pair dX "
-        "/ pair dW: " + "; ".join(f"{shape} {f}/{dx}/{dw}" for shape,
-                                   (f, dx, dw) in zip(gemms, plans)))
+    log("gemm", "tile (BM x BN) and contraction pieces S per GEMM (M, N, K): "
+        "forward tile, pieces forward / pair dX / pair dW: " + "; ".join(
+            f"{shape} {mxm.TILE_M}x{mxm.tile_n(shape[1])} {f}/{dx}/{dw}"
+            for shape, (f, dx, dw) in zip(gemms, plans)))
     gen = torch.Generator(device=dev).manual_seed(6)
     acts = [torch.randn((m, k), generator=gen, device=dev)
             for m, _, k in gemms]
@@ -889,16 +895,56 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
     serve_ms = pass_ms([lambda a=a, qw=qw: mxf.mx_matmul_prequant_cuda(
         a, qw, "mx6") for a, qw in zip(acts, qws)])
     flops = sum(2 * m * n * k for m, n, k in gemms)
-    log("gemm", f"summed device time: MX9 training pass ({count} fused + "
-        f"{count} pair launches) {train_ms:.4f} ms, of which the {count} "
-        f"forward launches {fwd_ms:.4f} ms; MX6 serving pass ({count} "
-        f"prequant launches) {serve_ms:.4f} ms; {flops / 1e9:.2f} GFLOP per "
+    bound = {name: sum(gemm_bound_ms(name, *shape)[0] for shape in gemms)
+             for name in ("mx_matmul_fused", "mx_matmul_bwd_pair",
+                          "mx_matmul_prequant")}
+    log("gemm", f"summed device time (summed bound): MX9 training pass "
+        f"({count} fused + {count} pair launches) {train_ms:.4f} ms "
+        f"({bound['mx_matmul_fused'] + bound['mx_matmul_bwd_pair']:.4f}), "
+        f"of which the {count} forward launches {fwd_ms:.4f} ms "
+        f"({bound['mx_matmul_fused']:.4f}); MX6 serving pass ({count} "
+        f"prequant launches) {serve_ms:.4f} ms "
+        f"({bound['mx_matmul_prequant']:.4f}); {flops / 1e9:.2f} GFLOP per "
         "forward")
+    # Where each pass's time goes: every GEMM's forward kernels alone.
+    per_gemm = []
+    for (m, n, k), a, w, qw, (pieces, _, _) in zip(gemms, acts, ws, qws,
+                                                   plans):
+        row = {"shape_mnk": [m, n, k],
+               "tile": [mxm.TILE_M, mxm.tile_n(n)], "pieces": pieces,
+               "fused_ms": time_ms(lambda: mxf.mx_matmul_fused_cuda(
+                   a, w, "mx9", "mx9")),
+               "fused_bound_ms": gemm_bound_ms("mx_matmul_fused", m, n,
+                                               k)[0],
+               "prequant_ms": time_ms(lambda: mxf.mx_matmul_prequant_cuda(
+                   a, qw, "mx6")),
+               "prequant_bound_ms": gemm_bound_ms("mx_matmul_prequant", m,
+                                                  n, k)[0]}
+        per_gemm.append(row)
+        log("gemm", "{shape_mnk} tile {tile} pieces {pieces}: fused mx9 "
+            "{fused_ms:.4f} ms (bound {fused_bound_ms:.4f}), prequant mx6 "
+            "{prequant_ms:.4f} ms (bound {prequant_bound_ms:.4f})".format(
+                **row))
+    # A yardstick only, not the same function (no quantization, bf16
+    # output): torch.matmul in bf16 on the stem's operands dequantized
+    # beforehand. library_ms stays null: no PyTorch call computes an MX
+    # GEMM.
+    (m, n, k), a, w = gemms[0], acts[0], ws[0]
+    a_bf = qd(a, "mx9").bfloat16()
+    w_bf = qd(w.T, "mx9").bfloat16().T
+    yard_ms = time_ms(lambda: torch.matmul(a_bf, w_bf))
+    log("gemm", f"yardstick, NOT the same function: torch.matmul in bf16 on "
+        f"the stem's pre-dequantized operands ({m}, {n}, {k}): "
+        f"{yard_ms:.4f} ms, beside fused {per_gemm[0]['fused_ms']:.4f} ms")
+    del a_bf, w_bf
     walls = [mx9_training_pass()[1] for _ in range(3)]
     log("gemm", "MX9 training pass through mx_dense and autograd, host wall "
         f"of three warm passes: {[round(t, 4) for t in walls]} s")
     for row in rows:
-        row.update(train_pass_ms=train_ms, serve_pass_ms=serve_ms)
+        row.update(train_pass_ms=train_ms, serve_pass_ms=serve_ms,
+                   forward_pass_ms=fwd_ms, pass_bound_ms=bound)
+        if row["name"] in ("mx_matmul_fused", "mx_matmul_prequant"):
+            row["per_gemm"] = per_gemm
     return rows
 
 
@@ -933,7 +979,10 @@ def main() -> None:
         f" sm_90a, {[p.name for p in mxq.sources()]} -> {lib.name} in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "entry function" in line or "registers" in line or "spill" in line:
+        # Entry points and their registers and spills; not ptxas's notes on
+        # where it placed wgmma fences ("(C7519) ... use of registers").
+        if ("entry function" in line or "Used" in line
+                or "spill" in line):
             log("build", "ptxas: " + line.strip())
 
     # ----------------------------------------------------------- 3 kernels

@@ -1,5 +1,5 @@
 // MX GEMMs for Hopper (sm_90a), written by hand: the four Pallas GEMM
-// kernels of the JAX package, on one tiled fp32 GEMM.
+// kernels of the JAX package, on one bf16 wgmma mainloop.
 //
 //   mx_gemm_mx        replaces kernels/mx_matmul.py::mx_matmul (:76;
 //                     _matmul_kernel :60, _dequant_lhs :40, _dequant_rhs :46)
@@ -14,294 +14,973 @@
 // mx_matmul_ref, mx_matmul_fused_ref, mx_matmul_bwd_pair_ref and
 // mx_matmul_prequant_ref (dequantized operands, then a float32 matmul).
 //
-// Design. C [M, N] = A [M, K] @ B [K, N] in fp32 on the CUDA cores. A block
-// computes a 128 x 128 tile of C with 256 threads, each an 8 x 8 register
-// block. The k-step is one MX block (16): every lhs row segment and every
-// rhs column segment of a k-step is exactly one MX block, so a loader
-// thread turns one 16-block into 16 fp32 values and writes them to shared
-// memory (threads 0..127 one lhs row each, threads 128..255 one rhs column
-// each). The kernels differ only in their loaders:
-//   LhsF32 / RhsF32 — fp32 values, read through strides (so A or B may be a
-//       transposed view, with no copy) and quantize-dequantized in-tile by
-//       mx_common.cuh's quantize_block / dequantize_block: bit for bit what
-//       mx_quantize_kernel would store and mx_dequantize_kernel return;
-//   LhsMX — a stored MXTensor, K-last: mantissa [M, Kp], planes [M, Kp/16];
-//   RhsMX — a stored MXTensor, K-first: mantissa [Kp, N], planes [Kp/16, N].
-// Blocks start at k = 0 and k >= K reads as zero: the zero padding of K
-// to Kp = 16 * ceil(K / 16) that the reference applies (ops.py:200-203).
-// Ragged M and N edges are masked (loaders give zeros, stores are
-// skipped); the 8/128 padding of the Pallas path is TPU tiling and is not
-// needed here.
+// Bound (H100 SXM, NVIDIA data sheet): the larger of 2 M N K operations
+// (4 M N K for the pair) over 989 TFLOP/s bf16, and the bytes — fp32
+// operands at 4 bytes an element, stored MX operands at 1 + 2/16, the
+// fp32 output once — over 3.35 TB/s. Every GEMM of ResNet18 at batch 32
+// is bytes-bound: the fused forward does 15-178 operations a byte against
+// the ~295 at which bf16 tensor cores become the limit. Bytes bounds of
+// the fused (prequant) forward, us: the stem (401408, 64, 147) 101.1
+// (101.1); layer1 (100352, 64, 576) 76.7 (76.7) x4; layer2 (25088, 128,
+// K) 21.2 (21.1) at K 576, 38.5 (38.4) x3 at 1152, 5.8 (5.8) at 64;
+// layer3 (6272, 256, K) 10.9 (10.6) at 1152, 19.9 (19.4) x3 at 2304, 2.9
+// (2.9) at 128; layer4 (1568, 512, K) 6.7 (5.7) at 2304, 12.4 (10.4) x3
+// at 4608, 1.6 (1.5) at 256; the head (32, 1000, 512) 0.7 (0.2). A pass:
+// 670 (660) us.
 //
-// Numerics. Long contractions are split in a fixed order. The wrapper
-// chooses, from the GEMM's shape alone (mx_matmul.py::gemm_split_plan, a
-// pure function of (M, N, Kp)), S chunks of the contraction whose
-// boundaries fall on multiples of 16, so every MX block quantized along
-// the contraction stays whole; S = 1 wherever the output's tiles fill the
-// card. Each partial is one fp32 FMA chain over its chunk, k in order,
-// starting from 0; a second kernel (split_reduce_kernel) adds the S
-// partials in the order s = 0, 1, ..., S-1. No atomics. So a result
-// repeats bit for bit from run to run; it depends on the shape-chosen
-// chunking, not on the tiling. Since all four kernels share the driver
-// and the plan, the JAX package's contracts hold bitwise on the card:
+// Design. A dequantized MX value is an integer of at most 7 bits times a
+// power of two, exact in bf16 down to bf16's smallest subnormal step
+// 2^-133 (the smallest MX scale), so the products run on the tensor
+// cores: wgmma.mma_async m64n(BN/2)k16, bf16 operands, fp32 accumulators.
+// One k16 step is one MX block. A CTA of four warpgroups (512 threads) in a
+// 2 x 2 grid computes a 128 x BN tile of C, each warpgroup 64 rows x BN / 2
+// columns; BN is a pure function of N (mx_matmul.py::tile_n: 64 for
+// N <= 64, else 128), so the stem and layer1 (N = 64) fill their tiles.
+// One CTA an SM (the ring fills shared memory), persistent: it walks the
+// (chunk, tile) units cta, cta + grid, ... and its ring runs on across
+// units. The k-loop runs in slabs of BK = 64 (four MX blocks):
+//   copies — the raw operand slabs (fp32 values, or int8 mantissas and
+//       exponent / bit planes) go into a ring of 2-4 stages (as many as
+//       227 KB hold), issued kStages - 1 slabs ahead of the slab being
+//       converted. Where an fp32 operand's rows are contiguous and 16-byte
+//       aligned (every operand of the forward GEMMs but the stem's lhs),
+//       thread 0 issues 2-D TMA boxes of 32 values by the slab's rows,
+//       128-byte swizzled, zero-filled past the edges, and the stage's
+//       mbarrier counts their bytes. Otherwise every thread issues
+//       cp.async copies that write the same layout, out of line of the
+//       slab loop: 4 bytes an fp32 value, neighbouring threads on the
+//       stride-1 axis (the pair's x^T at K = 147); MX operands 16 bytes
+//       where aligned, else whole aligned words read at their byte offset
+//       (MX planes, N not a multiple of 16). TMA needs a 16-byte aligned
+//       box start, which the stem's 588-byte rows cannot give (see the
+//       panel path below).
+//   converters — all 512 threads take (row, 16-block) units of the lhs and
+//       (column, 16-block) units of the rhs and quantize and dequantize
+//       each with mx_common.cuh's quantize_block_f / dequantize_block_f
+//       (the cores of quantize_block / dequantize_block: bit for bit what
+//       mx_quantize_kernel stores and mx_dequantize_kernel returns; MX
+//       operands are only dequantized), writing 16 bf16 values (the high
+//       halves of the fp32 patterns, exact) into the K-major core-matrix
+//       layout wgmma reads (8 x 16-byte rows a core matrix, no swizzle) —
+//       for the rhs too: a converter reads an N-contiguous rhs down a
+//       column and transposes it in registers. No MX tensor of a fused or
+//       prequant operand reaches device memory.
+//   MMA — two bf16 buffers: slab i converts into buffer i % 2, then (after
+//       a proxy fence and a barrier) the warpgroups wait on the wgmmas of
+//       slab i - 1, promote them, and issue slab i's, which run while slab
+//       i + 1 converts.
+//   resident rhs — a rhs under a single 64-wide tile column with no split
+//       and Kp <= 768 (layer1) is converted once per CTA into a resident
+//       bf16 buffer, and the ring carries the lhs alone.
+//   panel path (panel_kernel) — an fp32 lhs of contiguous rows that are
+//       not 16-byte aligned (the stem's K = 147) over a short contraction,
+//       N <= 64, no split: a tile's whole lhs panel (128 rows, one span of
+//       512 K bytes on a 16-byte boundary) comes by one cp.async.bulk
+//       while the tile before converts, and the rhs stays resident.
+// Rows past M and columns past N are not stored.
+//
+// Accumulation and order. Each slab's wgmmas start from zero (scale-d =
+// 0 on the first) and the slab's sum is added to a second fp32 register
+// accumulator with an ordinary FADD (round to nearest) once the wgmmas
+// are waited on: the tensor cores align and truncate inside an
+// instruction, an error biased toward zero that over a whole contraction
+// would grow faster than sqrt(K); over four MX blocks it does not. Long
+// contractions are split in a fixed order (mx_matmul.py::gemm_split_plan,
+// a pure function of (M, N, Kp)): S chunks whose boundaries fall on
+// multiples of 16, each summed in slabs of 64 from its start (the last
+// slab may be shorter), into ws[s]; split_reduce_kernel adds the S
+// partials in the order s = 0, 1, ..., S-1. No atomics: a result repeats
+// bit for bit from run to run. An output element's bits depend on its
+// operands' bf16 values, the chunking and the slab order, never on the
+// tile, the path or on which kernel loaded the values, and all four
+// kernels feed the same wgmma sequence the same values. (One exception,
+// without effect: quantize_block_f gives -0 for a zero mantissa of a
+// negative input, a stored MX mantissa +0. A zero product never changes a
+// sum with a nonzero term, and the promotion, which starts from +0,
+// turns a sum of zeros into +0.) So the JAX package's contracts hold
+// bitwise on the card:
 //   fused(a, b) == mx(quantize(a), quantize_rhs(b)) == prequant(a,
 //   quantize_rhs(b)), and bwd_pair(g, x, w) == (fused(g, w^T),
 //   fused(x^T, g)) — the pair's dW and fused(x^T, g) see the same
 //   (K, N, Mp), so the same chunks.
-// A product of two dequantized MX values (at most 8 significant bits
-// each) is exact in fp32 outside the denormal range, so the kernels
-// differ from the plain version's matmul only by summation order; a
-// chunked sum is one more summation order, so the limits
-// 2·Kp·2⁻²⁴·(|A_q| @ |B_q|) and 4·√Kp·2⁻²⁴·√(A_q² @ B_q²) of ref.py::
-// gemm_error_limits still cover it.
-//
-// Bound (H100 SXM, NVIDIA data sheet). The least time is the larger of
-//   operations: 2 M N K (4 M N K for the pair) over 989 TFLOP/s — the
-//       dequantized operands are exact in bf16, so a tensor-core (wgmma)
-//       design could run at the bf16 rate;
-//   bytes: fp32 operands at 4 bytes an element, stored MX operands at
-//       1 + 2/16 bytes, the fp32 output once, over 3.35 TB/s.
-// For ResNet18's GEMMs at batch 32 the bytes bound: with fp32 operands
-// and N <= 1000 they carry fewer operations per byte than the ~295 the
-// bf16 rate needs. What this design does about either bound: it runs on
-// the CUDA cores, whose fp32 peak is 67 TFLOP/s, with no software
-// pipelining; the split keeps the SMs busy where the output has few
-// tiles (the pair's dW, contracted over M = 401,408, has 2 tiles at
-// ResNet18's stem at batch 32). wgmma on bf16 tiles fed by TMA is later
-// work.
+// A product of two dequantized MX values is exact in fp32 outside the
+// subnormal range, so the kernels differ from the plain version's fp32
+// matmul only by the order and rounding of the sums, within the limits
+// 2·Kp·2⁻²⁴·(|A_q| @ |B_q|) and 4·sqrt(Kp)·2⁻²⁴·sqrt(A_q² @ B_q²) of
+// ref.py::gemm_error_limits (chip_smoke.py phase 6 shows the readings).
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mx_common.cuh"
 
 namespace {
 
-constexpr int kBK = mx::kBlock;  // one MX block per k-step
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kThreads = 256;
-static_assert(kThreads == kBM + kBN, "one loader thread per row / column");
+constexpr int kBM = 128;  // rows of a tile: two warpgroup rows of 64
+constexpr int kBK = 64;   // a slab: four MX blocks, four k16 wgmmas
+constexpr int kKB = kBK / mx::kBlock;
+constexpr int kThreads = 512;  // four warpgroups, 2 x 2 over the tile
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block can use
 
-__device__ __forceinline__ void zero16(float (&v)[kBK]) {
+// Streaming multiprocessors of the current card (host).
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of `size` (4 or 16) bytes, of which the first `src_bytes` are
+// read and the rest zero-filled.
+template <int kSize>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  if constexpr (kSize == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Orders this thread's generic shared-memory accesses before the async
+// proxy's: the converters' writes before the wgmmas read them, the
+// converters' reads before a TMA copy overwrites the stage.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads across a wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < kBK; ++i) v[i] = 0.0f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void quant_dequant(const uint32_t (&u)[kBK],
-                                              int mb, float (&v)[kBK]) {
-  int8_t q[kBK];
-  int e;
-  uint32_t bits;
-  mx::quantize_block(u, mb, q, e, bits);
-  mx::dequantize_block(q, e, bits, mb, v);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
 }
 
-// fp32 lhs: element (m, k) at p[m * sm + k * sk].
-struct LhsF32 {
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nwait_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra wait_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A 2-D TMA copy of the box at (c0 inner, c1 outer) into shared memory,
+// completing `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16, 16-byte aligned ends) into
+// shared memory, completing `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, K-major without swizzle: core matrices
+// of 8 rows x 16 bytes (128 contiguous bytes); `lbo` bytes between the two
+// core matrices of a k16 step, `sbo` bytes between 8-row groups.
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// 16 dequantized values of unit (x, kb) as bf16 into the K-major
+// core-matrix layout of an X-row operand: k16 step kb, 8-row group x / 8,
+// its two core matrices (k 0-7, k 8-15) 128 bytes apart. A dequantized MX
+// value has at most 7 significant bits and is a multiple of 2^-133, so
+// the low 16 bits of its fp32 pattern are zero and the high 16 are its
+// bf16 pattern, exactly (one byte permute a pair, no conversion).
+template <int X>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* buf, int x, int kb,
+                                           const float (&v)[mx::kBlock]) {
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w[i] = __byte_perm(__float_as_uint(v[2 * i]),
+                       __float_as_uint(v[2 * i + 1]), 0x7632);
+  }
+  char* p = reinterpret_cast<char*>(buf) + (kb * (X / 8) + x / 8) * 256 +
+            (x % 8) * 16;
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(p + 128) = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+__device__ __forceinline__ int clamp_bytes(long long n, int most) {
+  return (int)max(0LL, min((long long)most, n));
+}
+
+// An fp32 operand of X rows (M for the lhs, N for the rhs) quantized
+// along the contraction: element (x, k) at p[x * sx + k * sk], valid for
+// x < ext_x and k < ext_k (zero beyond). A slab (X x kBK) keeps its
+// stride-1 axis inner — [x][k] when inner_k, else [k][x] — cut into
+// regions of 32 inner values (128 bytes a row), each row's 16-byte chunks
+// XOR-ed with row % 8: TMA's 128-byte swizzle, which the cp.async paths
+// write too, so that the converters read without bank conflicts.
+template <int X>
+struct F32Op {
+  static constexpr int kStageBytes = X * kBK * 4;
+  CUtensorMap tmap;  // inner x outer, box 32 x rows; valid where tma
   const float* p;
-  long long sm, sk;
-  int mb;
-  __device__ __forceinline__ void load(int m, int M, int k0, int K,
-                                       float (&v)[kBK]) const {
-    if (m >= M) return zero16(v);
-    const float* row = p + (long long)m * sm;
-    uint32_t u[kBK];
+  long long sx, sk;
+  int ext_x, ext_k, mb;
+  int inner_k;  // the slab is [x][k] (else [k][x])
+  int tma;      // the slab comes by TMA (thread 0 issues it)
+
+  // Bytes the slab's TMA copies bring (the whole box, zero-filled past the
+  // edge), 0 where the slab comes by cp.async.
+  __device__ __forceinline__ uint32_t tma_bytes() const {
+    return tma ? (uint32_t)kStageBytes : 0u;
+  }
+
+  // Float offset of element (o, i) — outer row o, inner index i — in a
+  // slab of `rows` outer rows.
+  __device__ __forceinline__ static int at(int rows, int o, int i) {
+    return (i >> 5) * rows * 32 + o * 32 + ((((i >> 2) & 7) ^ (o & 7)) << 2) +
+           (i & 3);
+  }
+
+  // Thread 0 issues the slab's TMA boxes.
+  template <bool kInnerK>
+  __device__ __forceinline__ void load_tma(float* raw, int x0, int k0,
+                                           uint64_t* bar) const {
+    constexpr int W = kInnerK ? kBK : X;  // inner extent
+    constexpr int R = kInnerK ? X : kBK;  // outer rows
 #pragma unroll
-    for (int i = 0; i < kBK; ++i) {
-      int k = k0 + i;
-      u[i] = k < K ? __float_as_uint(__ldg(row + (long long)k * sk)) : 0u;
+    for (int h = 0; h < W / 32; ++h) {
+      tma_load_2d(raw + h * R * 32, &tmap, (kInnerK ? k0 : x0) + 32 * h,
+                  kInnerK ? x0 : k0, bar);
     }
-    quant_dequant(u, mb, v);
+  }
+
+  // Every thread issues its cp.async copies of the slab. Out of line: a
+  // fallback, kept out of the slab loop's code.
+  template <bool kInnerK>
+  __device__ __noinline__ void load_cp_async(float* raw, int x0,
+                                             int k0) const {
+    constexpr int W = kInnerK ? kBK : X;  // inner extent
+    constexpr int R = kInnerK ? X : kBK;  // outer rows
+#pragma unroll 4
+    for (int j = 0; j < R * W / kThreads; ++j) {
+      const int e = threadIdx.x + j * kThreads;
+      const int o = e / W, i = e % W;
+      const int x = kInnerK ? o : i, k = kInnerK ? i : o;
+      const int gx = x0 + x, gk = k0 + k;
+      const bool ok = gx < ext_x && gk < ext_k;
+      cp_async<4>(raw + at(R, o, i), ok ? p + gx * sx + gk * sk : p,
+                  ok ? 4 : 0);
+    }
+  }
+
+  __device__ __forceinline__ void load(void* raw_v, int x0, int k0,
+                                       uint64_t* bar) const {
+    float* raw = static_cast<float*>(raw_v);
+    if (tma) {
+      if (threadIdx.x != 0) return;
+      if (inner_k) {
+        load_tma<true>(raw, x0, k0, bar);
+      } else {
+        load_tma<false>(raw, x0, k0, bar);
+      }
+    } else if (inner_k) {
+      load_cp_async<true>(raw, x0, k0);
+    } else {
+      load_cp_async<false>(raw, x0, k0);
+    }
+  }
+
+  // Unit u = (x = u % X, kb = u / X): quantize-dequantize one 16-block.
+  __device__ __forceinline__ void convert(const void* raw_v, int, int, int u,
+                                          __nv_bfloat16* buf) const {
+    const float* raw = static_cast<const float*>(raw_v);
+    const int x = u % X, kb = u / X;
+    uint32_t bits[mx::kBlock];
+    if (inner_k) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 f = *reinterpret_cast<const float4*>(
+            raw + at(X, x, mx::kBlock * kb + 4 * q));
+        bits[4 * q] = __float_as_uint(f.x);
+        bits[4 * q + 1] = __float_as_uint(f.y);
+        bits[4 * q + 2] = __float_as_uint(f.z);
+        bits[4 * q + 3] = __float_as_uint(f.w);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < mx::kBlock; ++j) {
+        bits[j] = __float_as_uint(raw[at(kBK, mx::kBlock * kb + j, x)]);
+      }
+    }
+    float q[mx::kBlock], v[mx::kBlock];
+    int e;
+    uint32_t packed;
+    mx::quantize_block_f(bits, mb, q, e, packed);
+    mx::dequantize_block_f(q, e, packed, mb, v);
+    store_bf16<X>(buf, x, kb, v);
   }
 };
 
-// fp32 rhs: element (k, n) at p[k * sk + n * sn].
-struct RhsF32 {
-  const float* p;
-  long long sk, sn;
-  int mb;
-  __device__ __forceinline__ void load(int k0, int K, int n, int N,
-                                       float (&v)[kBK]) const {
-    if (n >= N) return zero16(v);
-    const float* col = p + (long long)n * sn;
-    uint32_t u[kBK];
-#pragma unroll
-    for (int i = 0; i < kBK; ++i) {
-      int k = k0 + i;
-      u[i] = k < K ? __float_as_uint(__ldg(col + (long long)k * sk)) : 0u;
-    }
-    quant_dequant(u, mb, v);
-  }
-};
+// ROWS rows of WIDTH bytes, row r at g0 + r * gpitch, into shared memory
+// (row pitch spitch >= WIDTH + 16); rows >= rows_valid and bytes past
+// width_valid zero-filled. 16-byte copies when g0 and gpitch are 16-byte
+// aligned; else whole aligned words from the word holding row r's first
+// byte, which then sits at byte_shift(g0, gpitch, r) of its shared row.
+__device__ __forceinline__ bool aligned16(const void* g0, long long gpitch) {
+  return (((uintptr_t)g0 | (uintptr_t)gpitch) & 15) == 0;
+}
 
-// Stored MX lhs, K-last: mantissa [M, kp] (16-byte aligned rows),
-// exponent / bits [M, kp / 16].
-struct LhsMX {
+__device__ __forceinline__ int byte_shift(const void* g0, long long gpitch,
+                                          int r) {
+  return aligned16(g0, gpitch) ? 0
+                               : (int)(((uintptr_t)g0 + r * gpitch) & 3);
+}
+
+template <int ROWS, int WIDTH>
+__device__ __forceinline__ void copy_bytes(uint8_t* s, int spitch,
+                                           const int8_t* g0, long long gpitch,
+                                           int rows_valid, int width_valid) {
+  if (aligned16(g0, gpitch)) {
+    constexpr int kC = (WIDTH + 15) / 16;
+    for (int i = threadIdx.x; i < ROWS * kC; i += kThreads) {
+      const int r = i / kC, c = i % kC;
+      const int n = r < rows_valid ? clamp_bytes(width_valid - 16LL * c, 16)
+                                   : 0;
+      cp_async<16>(s + r * spitch + 16 * c, n ? g0 + r * gpitch + 16 * c : g0,
+                   n);
+    }
+  } else {
+    constexpr int kC = WIDTH / 4 + 1;
+    const int8_t* any = reinterpret_cast<const int8_t*>((uintptr_t)g0 & ~3ull);
+    for (int i = threadIdx.x; i < ROWS * kC; i += kThreads) {
+      const int r = i / kC, c = i % kC;
+      const int8_t* g = g0 + r * gpitch;
+      const int8_t* w0 = reinterpret_cast<const int8_t*>((uintptr_t)g & ~3ull);
+      const int n = r < rows_valid
+                        ? clamp_bytes((g - w0) + width_valid - 4LL * c, 4)
+                        : 0;
+      cp_async<4>(s + r * spitch + 4 * c, n ? w0 + 4 * c : any, n);
+    }
+  }
+}
+
+// A stored MX operand of X rows, only dequantized. kInnerK (the lhs,
+// K-last): mantissa (x, k) at mant[x * pitch_m + k], planes (x, kb) at
+// [x * pitch_p + kb]. Else (the rhs, K-first): mantissa at
+// mant[k * pitch_m + x], planes at [kb * pitch_p + x]. Valid for x < ext_x
+// and k < ext_kp (Kp). A slab keeps the global layout, rows padded.
+template <int X, bool kInnerK>
+struct MXOp {
+  static constexpr int kMP = kInnerK ? kBK + 16 : X + 16;  // mantissa pitch
+  static constexpr int kPP = kInnerK ? 16 : X + 16;        // plane pitch
+  static constexpr int kMRows = kInnerK ? X : kBK;
+  static constexpr int kPRows = kInnerK ? X : kKB;
+  static constexpr int kStageBytes = (kMRows * kMP) + 2 * (kPRows * kPP);
   const int8_t* mant;
   const int8_t* expo;
   const uint8_t* bits;
-  long long kp;
-  int mb;
-  __device__ __forceinline__ void load(int m, int M, int k0, int,
-                                       float (&v)[kBK]) const {
-    if (m >= M) return zero16(v);
-    uint4 w = __ldg(reinterpret_cast<const uint4*>(mant + (long long)m * kp
-                                                   + k0));
-    uint32_t words[4] = {w.x, w.y, w.z, w.w};
-    int8_t q[kBK];
-#pragma unroll
-    for (int i = 0; i < kBK; ++i) {
-      q[i] = (int8_t)((words[i / 4] >> (8 * (i % 4))) & 0xFFu);
+  long long pitch_m, pitch_p;
+  int ext_x, ext_kp, mb;
+
+  // Slab bases: the mantissa and the two planes at (x0, k0).
+  __device__ __forceinline__ const int8_t* mant0(int x0, int k0) const {
+    return kInnerK ? mant + x0 * pitch_m + k0 : mant + k0 * pitch_m + x0;
+  }
+  __device__ __forceinline__ long long plane_off(int x0, int k0) const {
+    const int kb0 = k0 / mx::kBlock;
+    return kInnerK ? x0 * pitch_p + kb0 : kb0 * pitch_p + x0;
+  }
+
+  __device__ __forceinline__ uint32_t tma_bytes() const { return 0u; }
+
+  __device__ __noinline__ void load(void* raw_v, int x0, int k0,
+                                    uint64_t*) const {
+    uint8_t* raw = static_cast<uint8_t*>(raw_v);
+    uint8_t* pe = raw + kMRows * kMP;
+    uint8_t* pb = pe + kPRows * kPP;
+    const long long po = plane_off(x0, k0);
+    const int8_t* bits8 = reinterpret_cast<const int8_t*>(bits);
+    if constexpr (kInnerK) {
+      const int rows = ext_x - x0, kw = min(kBK, ext_kp - k0);
+      copy_bytes<X, kBK>(raw, kMP, mant0(x0, k0), pitch_m, rows, kw);
+      copy_bytes<X, kKB>(pe, kPP, expo + po, pitch_p, rows, kw / 16);
+      copy_bytes<X, kKB>(pb, kPP, bits8 + po, pitch_p, rows, kw / 16);
+    } else {
+      const int cols = ext_x - x0, kr = ext_kp - k0;
+      copy_bytes<kBK, X>(raw, kMP, mant0(x0, k0), pitch_m, kr, cols);
+      copy_bytes<kKB, X>(pe, kPP, expo + po, pitch_p, kr / 16, cols);
+      copy_bytes<kKB, X>(pb, kPP, bits8 + po, pitch_p, kr / 16, cols);
     }
-    long long b = (long long)m * (kp / kBK) + k0 / kBK;
-    mx::dequantize_block(q, __ldg(expo + b), __ldg(bits + b), mb, v);
+  }
+
+  // Unit u = (x = u % X, kb = u / X) of the slab at (x0, k0).
+  __device__ __forceinline__ void convert(const void* raw_v, int x0, int k0,
+                                          int u, __nv_bfloat16* buf) const {
+    const uint8_t* raw = static_cast<const uint8_t*>(raw_v);
+    const uint8_t* pe = raw + kMRows * kMP;
+    const uint8_t* pb = pe + kPRows * kPP;
+    const int x = u % X, kb = u / X;
+    const int8_t* m0 = mant0(x0, k0);
+    const long long po = plane_off(x0, k0);
+    float q[mx::kBlock];
+    int e;
+    uint32_t packed;
+    if constexpr (kInnerK) {
+      const uint8_t* row = raw + x * kMP + byte_shift(m0, pitch_m, x) +
+                           mx::kBlock * kb;
+      if (aligned16(m0, pitch_m)) {
+        const uint4 w = *reinterpret_cast<const uint4*>(row);
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < mx::kBlock; ++i) {
+          q[i] = mx::mantissa_float(
+              (int8_t)((words[i / 4] >> (8 * (i % 4))) & 0xFFu));
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < mx::kBlock; ++i) {
+          q[i] = mx::mantissa_float((int8_t)row[i]);
+        }
+      }
+      const int se = x * kPP + byte_shift(expo + po, pitch_p, x) + kb;
+      const int sb = x * kPP +
+                     byte_shift(bits + po, pitch_p, x) + kb;
+      e = (int8_t)pe[se];
+      packed = pb[sb];
+    } else {
+#pragma unroll
+      for (int i = 0; i < mx::kBlock; ++i) {
+        const int r = mx::kBlock * kb + i;
+        q[i] = mx::mantissa_float(
+            (int8_t)raw[r * kMP + byte_shift(m0, pitch_m, r) + x]);
+      }
+      e = (int8_t)pe[kb * kPP + byte_shift(expo + po, pitch_p, kb) + x];
+      packed = pb[kb * kPP + byte_shift(bits + po, pitch_p, kb) + x];
+    }
+    float v[mx::kBlock];
+    mx::dequantize_block_f(q, e, packed, mb, v);
+    store_bf16<X>(buf, x, kb, v);
   }
 };
 
-// Stored MX rhs, K-first: mantissa [Kp, ld], exponent / bits [Kp / 16, ld].
-struct RhsMX {
-  const int8_t* mant;
-  const int8_t* expo;
-  const uint8_t* bits;
-  long long ld;
-  int mb;
-  __device__ __forceinline__ void load(int k0, int, int n, int N,
-                                       float (&v)[kBK]) const {
-    if (n >= N) return zero16(v);
-    int8_t q[kBK];
-#pragma unroll
-    for (int i = 0; i < kBK; ++i) {
-      q[i] = __ldg(mant + (long long)(k0 + i) * ld + n);
-    }
-    long long b = (long long)(k0 / kBK) * ld + n;
-    mx::dequantize_block(q, __ldg(expo + b), __ldg(bits + b), mb, v);
+// A warpgroup's share of a 128 x BN tile: 64 rows x BN / 2 columns.
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 4], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  if constexpr (BN == 64) {
+    wgmma_m64n32(d, da, db, scale_d);
+  } else {
+    wgmma_m64n64(d, da, db, scale_d);
   }
-};
+}
 
-// One GEMM: C [M, N] (row-major, ld N) over a contraction of length K,
-// split into `split` chunks of `chunk` (a multiple of 16). With split = 1
-// the tiles write C; otherwise chunk s writes its partial to ws[s] [M, N]
-// and split_reduce_kernel sums them into C.
-template <class A, class B>
+// One GEMM: C [M, N] (row-major, ld N) = A [M, Kp] @ B [Kp, N], the
+// contraction split into `split` chunks of `chunk` (a multiple of 16; the
+// last may be shorter). With split = 1 the tiles write C; otherwise chunk
+// s writes its partial to ws[s] [M, N] and split_reduce_kernel sums them.
+// A unit is (chunk s, tile): unit = s * tiles + tile, tiles row-major
+// over (tile_m, tile_n), so the tiles of one chunk are neighbours.
+template <int BN, class A, class B>
 struct Gemm {
   A a;
   B b;
   float* c;
   float* ws;
-  int M, N, K;
+  int M, N, kp;
   int split, chunk;
-  int tiles_n, tiles;  // tiles of C
-  int ctas;            // tiles * split
+  int tiles_n, tiles, units;
 };
 
-template <class A, class B>
-Gemm<A, B> make_gemm(A a, B b, void* c, int M, int N, int K, int split,
-                     int chunk, void* ws) {
-  int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
-  int tiles = tiles_m * tiles_n;
-  return Gemm<A, B>{a, b, (float*)c, (float*)ws, M, N, K, split, chunk,
-                    tiles_n, tiles, tiles * split};
+// Shared memory of one instantiation, from a 1024-byte aligned base (TMA's
+// 128-byte swizzle): kStages raw slabs, each 1024-byte aligned; two bf16
+// buffers (slab i converts into buffer i % 2 while the wgmmas of slab i - 1
+// read the other), each the lhs [kKB][kBM / 8][2][8 x 16 bytes] and the rhs
+// [kKB][BN / 8][2][...]; one mbarrier a stage (the TMA bytes of its slab).
+// kResB: the rhs is converted once, whole, into a resident bf16 buffer of
+// kResKp rows (a 64-wide rhs under a single tile column, no split: layer1),
+// and the ring and the two buffers carry the lhs alone.
+constexpr int kResKp = 768;
+
+template <int BN, class A, class B, bool kResB = false>
+struct Layout {
+  static constexpr int kStage =
+      (A::kStageBytes + (kResB ? 0 : B::kStageBytes) + 1023) / 1024 * 1024;
+  static constexpr int kBf16 = (kBM + (kResB ? 0 : BN)) * kBK * 2;  // one
+  static constexpr int kRes = kResB ? kResKp * BN * 2 : 0;
+  static_assert(B::kStageBytes <= kStage, "the rhs is staged in stage 0");
+  static constexpr int kFixed = 2 * kBf16 + kRes + 8 * 8 + 1024;
+  static constexpr int kFit = (kSmemMax - kFixed) / kStage;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kBytes = kStages * kStage + kFixed;
+  static_assert(kStages >= 2, "a slab in flight while one converts");
+};
+
+// A warpgroup's accumulators (rows 64 wm + ..., columns wn BN / 2 + ...;
+// wgmma's fragment layout) into out [M, N] at the tile (m0, n0).
+template <int BN>
+__device__ __forceinline__ void store_tile(const float (&total)[BN / 4],
+                                           float* out, int M, int N, int m0,
+                                           int n0) {
+  const int wm = threadIdx.x / 128 % 2, wn = threadIdx.x / 256;
+  const int lane = threadIdx.x % 32, w4 = (threadIdx.x % 128) / 32;
+  const int row0 = m0 + 64 * wm + 16 * w4 + lane / 4;
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j) {
+    const int col = n0 + wn * (BN / 2) + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      float* p = out + (long long)row * N + col;
+      const float v0 = total[4 * j + 2 * h], v1 = total[4 * j + 2 * h + 1];
+      if (pairs && col + 1 < N) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {
+        if (col < N) p[0] = v0;
+        if (col + 1 < N) p[1] = v1;
+      }
+    }
+  }
 }
 
-// CTA `cta` computes chunk cta / tiles of tile cta % tiles: the tiles of
-// one chunk are neighbours in the grid, so they share its rhs rows in L2.
-// kSplit = false (split = 1) is the whole contraction into C.
-template <bool kSplit, class A, class B>
-__device__ __forceinline__ void gemm_tile(const Gemm<A, B>& g, int cta,
-                                          float (&As)[kBK][kBM],
-                                          float (&Bs)[kBK][kBN]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int s = kSplit ? cta / g.tiles : 0;
-  const int tile = kSplit ? cta % g.tiles : cta;
-  const int m0 = (tile / g.tiles_n) * kBM, n0 = (tile % g.tiles_n) * kBN;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+// Where the ring stands: a unit (its tile at rows m0, columns n0) and the
+// slab [k0, k0 + kBK) of its contraction [lo, hi).
+struct Cursor {
+  int unit, k0, hi, m0, n0;
+};
+
+// The units first, first + stride, ... of one GEMM on one CTA.
+template <bool kResB, int BN, class A, class B>
+__device__ __forceinline__ void run(const Gemm<BN, A, B>& g, int first,
+                                    int stride, uint8_t* smem_raw) {
+  using L = Layout<BN, A, B, kResB>;
+  constexpr int S = L::kStages;
+  constexpr int kAcc = BN / 4;
+  // (row or column, block) units of a slab
+  constexpr int kUnits = (kBM + (kResB ? 0 : BN)) * kKB;
+  // Offset, not a cast through an integer: the compiler keeps the
+  // pointer in the shared window (LDS / STS, not generic loads).
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* abuf =
+      reinterpret_cast<__nv_bfloat16*>(smem + S * L::kStage);
+  __nv_bfloat16* bres = abuf + L::kBf16;  // kResB: the resident rhs
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S * L::kStage +
+                                               2 * L::kBf16 + L::kRes);
+  const int wm = threadIdx.x / 128 % 2, wn = threadIdx.x / 256;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= S; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int kp = (g.K + kBK - 1) / kBK * kBK;
-  const int k_begin = kSplit ? s * g.chunk : 0;
-  const int k_end =
-      kSplit ? (int)min((long long)kp, (long long)(s + 1) * g.chunk) : kp;
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    float v[kBK];
-    if (tid < kBM) {
-      g.a.load(m0 + tid, g.M, k0, g.K, v);
-#pragma unroll
-      for (int i = 0; i < kBK; ++i) As[i][tid] = v[i];
-    } else {
-      const int j = tid - kBM;
-      g.b.load(k0, g.K, n0 + j, g.N, v);
-#pragma unroll
-      for (int i = 0; i < kBK; ++i) Bs[i][j] = v[i];
+  __syncthreads();
+  if constexpr (kResB) {
+    // The whole rhs (tile column 0, no split), slab by slab through stage
+    // 0, converted once into bres; bars[S] counts its TMA bytes.
+    for (int k0 = 0, r = 0; k0 < g.kp; k0 += kBK, ++r) {
+      if (threadIdx.x == 0) {
+        fence_proxy_async();
+        mbar_expect_tx(&bars[S], g.b.tma_bytes());
+      }
+      g.b.load(smem, 0, k0, &bars[S]);
+      cp_async_commit();
+      cp_async_wait<0>();
+      mbar_wait(&bars[S], r & 1);
+      __syncthreads();
+      for (int u = threadIdx.x; u < BN * kKB; u += kThreads) {
+        if (k0 + mx::kBlock * (u / BN) < g.kp) {
+          g.b.convert(smem, 0, k0, u,
+                      bres + (k0 / mx::kBlock) * (BN / 8) * 128);
+        }
+      }
+      __syncthreads();
     }
+  }
+
+  auto begin = [&](Cursor& cur, int unit) {
+    cur.unit = unit;
+    const int s = unit / g.tiles, tile = unit - s * g.tiles;
+    const int tm = tile / g.tiles_n;
+    cur.k0 = s * g.chunk;
+    cur.hi = min(g.kp, cur.k0 + g.chunk);
+    cur.m0 = tm * kBM;
+    cur.n0 = (tile - tm * g.tiles_n) * BN;
+  };
+  auto next = [&](Cursor& cur) {
+    cur.k0 += kBK;
+    if (cur.k0 >= cur.hi) begin(cur, cur.unit + stride);
+  };
+  auto issue = [&](const Cursor& cur, int stage) {
+    uint8_t* st = smem + stage * L::kStage;
+    if (threadIdx.x == 0) {  // one arrival a phase, with the TMA bytes
+      fence_proxy_async();
+      mbar_expect_tx(&bars[stage],
+                     g.a.tma_bytes() + (kResB ? 0u : g.b.tma_bytes()));
+    }
+    g.a.load(st, cur.m0, cur.k0, &bars[stage]);
+    if (!kResB) g.b.load(st + A::kStageBytes, cur.n0, cur.k0, &bars[stage]);
+  };
+
+  Cursor prod, cons;
+  begin(prod, first);
+  begin(cons, first);
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (prod.unit < g.units) {
+      issue(prod, s);
+      next(prod);
+    }
+    cp_async_commit();
+  }
+  float acc[kAcc], total[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = total[i] = 0.0f;
+  int ps = S - 1, cs = 0;
+  uint32_t phase = 0;  // parity of stage cs's barrier in this round
+  Cursor pend = cons;  // the slab whose wgmmas are in flight
+  bool pend_last = false;
+
+  // Wait on the wgmmas of the slab before (none at the start: acc = 0),
+  // promote, and store its tile if it was the unit's last slab.
+  auto settle = [&]() {
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) total[i] += acc[i];
+    if (pend_last) {
+      float* out = g.split > 1
+                       ? g.ws + (long long)(pend.unit / g.tiles) * g.M * g.N
+                       : g.c;
+      store_tile<BN>(total, out, g.M, g.N, pend.m0, pend.n0);
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) total[i] = 0.0f;
+    }
+  };
+
+  for (int slab = 0; cons.unit < g.units; ++slab) {
+    if (prod.unit < g.units) {
+      issue(prod, ps);
+      next(prod);
+    }
+    cp_async_commit();
+    ps = ps + 1 == S ? 0 : ps + 1;
+    cp_async_wait<S - 1>();
+    mbar_wait(&bars[cs], phase);
+    __syncthreads();  // slab cs has landed
+    const uint8_t* st = smem + cs * L::kStage;
+    __nv_bfloat16* a16 = abuf + (slab & 1) * (L::kBf16 / 2);
+    __nv_bfloat16* b16 = a16 + kBM * kBK;
+#pragma unroll 1
+    for (int j = 0; j < (kUnits + kThreads - 1) / kThreads; ++j) {
+      const int u = threadIdx.x + j * kThreads;
+      if (u < kBM * kKB) {
+        g.a.convert(st, cons.m0, cons.k0, u, a16);
+      } else if (u < kUnits) {
+        g.b.convert(st + A::kStageBytes, cons.n0, cons.k0, u - kBM * kKB,
+                    b16);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // slab cs converted; its stage is free for a copy
+    settle();  // the slab before, whose wgmmas ran while this one converted
+    const int nk = min(kKB, (cons.hi - cons.k0) / mx::kBlock);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKB; ++kk) {
+      if (kk < nk) {
+        const __nv_bfloat16* bk =
+            kResB ? bres + (cons.k0 / mx::kBlock + kk) * (BN / 8) * 128
+                  : b16 + kk * (BN / 8) * 128;
+        wgmma_tile<BN>(
+            acc, desc(a16 + (kk * (kBM / 8) + 8 * wm) * 128, 128, 256),
+            desc(bk + wn * (BN / 16) * 128, 128, 256), kk > 0);
+      }
+    }
+    wgmma_commit();
+    pend = cons;
+    pend_last = cons.k0 + kBK >= cons.hi;
+    next(cons);
+    if (++cs == S) {
+      cs = 0;
+      phase ^= 1;
+    }
+  }
+  settle();
+  cp_async_wait<0>();
+}
+
+template <bool kResB, int BN, class A, class B>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_kernel(const __grid_constant__ Gemm<BN, A, B> g) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  run<kResB>(g, blockIdx.x, gridDim.x, smem);
+}
+
+// The backward pair in one launch: CTAs [0, ctas1) walk dX's units, the
+// rest dW's — the Hopper form of the Pallas kernel's two-phase grid.
+template <class G1, class G2>
+__global__ void __launch_bounds__(kThreads, 1)
+    pair_kernel(const __grid_constant__ G1 g1, const __grid_constant__ G2 g2,
+                int ctas1) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  if ((int)blockIdx.x < ctas1) {
+    run<false>(g1, blockIdx.x, ctas1, smem);
+  } else {
+    run<false>(g2, blockIdx.x - ctas1, gridDim.x - ctas1, smem);
+  }
+}
+
+// The stem's path: an fp32 lhs [M, K] whose rows are contiguous but not
+// 16-byte aligned (K % 4 != 0: the stem's K = 147, 588-byte rows), which
+// neither TMA nor 16-byte cp.async can cut into k-slabs, over a contraction
+// short enough that two of a tile's lhs panels fit in shared memory — 128
+// rows x K, one contiguous span of 512 K bytes on a 16-byte boundary, one
+// cp.async.bulk — with N <= 64 (one tile column) and no split. The rhs is
+// the same for every tile, so a CTA converts it once and keeps it as bf16;
+// the next tile's panel loads while this one converts. The wgmmas and the
+// promotions run in the ring's order (slabs of 64 from k = 0), so outputs
+// are bit for bit the ring's (the unfused stem takes the ring).
+struct Panel {
+  const float* a;
+  int M, K, kp, mb;
+  int tiles;        // ceil(M / 128)
+  int panel_bytes;  // one panel buffer, a multiple of 1024
+};
+
+template <class B>
+__global__ void __launch_bounds__(kThreads, 1)
+    panel_kernel(const __grid_constant__ Panel pa,
+                 const __grid_constant__ B b, float* c, int N) {
+  constexpr int BN = 64;
+  constexpr int kAcc = BN / 4;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* panel0 = reinterpret_cast<float*>(smem);
+  float* panel1 = reinterpret_cast<float*>(smem + pa.panel_bytes);
+  __nv_bfloat16* abuf =
+      reinterpret_cast<__nv_bfloat16*>(smem + 2 * pa.panel_bytes);
+  __nv_bfloat16* bbuf = abuf + kBM * pa.kp;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bbuf + BN * pa.kp);
+  const int wm = threadIdx.x / 128 % 2, wn = threadIdx.x / 256;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue_panel = [&](int tile, float* dst, uint64_t* bar) {
+    if (threadIdx.x == 0) {
+      const int rows = min(kBM, pa.M - tile * kBM);
+      const uint32_t bytes = (uint32_t)rows * pa.K * 4;
+      mbar_expect_tx(bar, bytes);
+      bulk_load(dst, pa.a + (long long)tile * kBM * pa.K, bytes, bar);
+    }
+  };
+  if ((int)blockIdx.x < pa.tiles) issue_panel(blockIdx.x, panel0, &bars[0]);
+  // The rhs, slab by slab through panel1, into the resident bf16 rhs.
+  for (int k0 = 0, r = 0; k0 < pa.kp; k0 += kBK, ++r) {
+    if (threadIdx.x == 0) {
+      fence_proxy_async();
+      mbar_expect_tx(&bars[2], b.tma_bytes());
+    }
+    b.load(panel1, 0, k0, &bars[2]);
+    cp_async_commit();
+    cp_async_wait<0>();
+    mbar_wait(&bars[2], r & 1);
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    for (int u = threadIdx.x; u < BN * kKB; u += kThreads) {
+      if (k0 + mx::kBlock * (u / BN) < pa.kp) {
+        b.convert(panel1, 0, k0, u,
+                  bbuf + (k0 / mx::kBlock) * (BN / 8) * 128);
       }
     }
     __syncthreads();
   }
-  float* out = kSplit ? g.ws + (long long)s * g.M * g.N : g.c;
+  float acc[kAcc], total[kAcc];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= g.M) continue;
-    float* row = out + (long long)m * g.N;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < g.N) row[n] = acc[i][j];
+  for (int i = 0; i < kAcc; ++i) acc[i] = total[i] = 0.0f;
+  const int blocks = pa.kp / mx::kBlock;
+  int i = 0;
+  for (int tile = blockIdx.x; tile < pa.tiles; tile += gridDim.x, ++i) {
+    float* cur = i & 1 ? panel1 : panel0;
+    if (tile + (int)gridDim.x < pa.tiles) {
+      if (threadIdx.x == 0) fence_proxy_async();
+      issue_panel(tile + gridDim.x, i & 1 ? panel0 : panel1,
+                  &bars[(i + 1) & 1]);
     }
+    mbar_wait(&bars[i & 1], (i >> 1) & 1);
+#pragma unroll 1
+    for (int u = threadIdx.x; u < kBM * blocks; u += kThreads) {
+      const int x = u % kBM, kb = u / kBM;
+      const float* row = cur + x * pa.K + mx::kBlock * kb;
+      const int valid = pa.K - mx::kBlock * kb;
+      uint32_t bits[mx::kBlock];
+#pragma unroll
+      for (int e = 0; e < mx::kBlock; ++e) {
+        bits[e] = e < valid ? __float_as_uint(row[e]) : 0u;
+      }
+      float q[mx::kBlock], v[mx::kBlock];
+      int ex;
+      uint32_t packed;
+      mx::quantize_block_f(bits, pa.mb, q, ex, packed);
+      mx::dequantize_block_f(q, ex, packed, pa.mb, v);
+      store_bf16<kBM>(abuf, x, kb, v);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    for (int k0 = 0; k0 < pa.kp; k0 += kBK) {
+      const int nk = min(kKB, (pa.kp - k0) / mx::kBlock);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKB; ++kk) {
+        if (kk < nk) {
+          const int kb = k0 / mx::kBlock + kk;
+          wgmma_tile<BN>(
+              acc, desc(abuf + (kb * (kBM / 8) + 8 * wm) * 128, 128, 256),
+              desc(bbuf + (kb * (BN / 8) + wn * (BN / 16)) * 128, 128, 256),
+              kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+#pragma unroll
+      for (int e = 0; e < kAcc; ++e) total[e] += acc[e];
+    }
+    store_tile<BN>(total, c, pa.M, N, tile * kBM, 0);
+#pragma unroll
+    for (int e = 0; e < kAcc; ++e) total[e] = 0.0f;
+    __syncthreads();  // every warpgroup's wgmmas have read this tile's bf16
   }
 }
 
-// One GEMM; a 1-D grid of its (tile, chunk) CTAs, tiles row-major over
-// (tile_m, tile_n) so neighbouring blocks share an lhs row panel in L2.
-template <bool kSplit, class A, class B>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(Gemm<A, B> g) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  gemm_tile<kSplit>(g, blockIdx.x, As, Bs);
+// Shared memory of panel_kernel for a contraction of K (0 if the path
+// does not apply).
+int panel_smem(int K) {
+  const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
+  const int panel = (kBM * K * 4 + 1023) / 1024 * 1024;
+  const int bytes = 2 * panel + (kBM + 64) * kp * 2 + 3 * 8 + 1024;
+  return bytes <= kSmemMax && 64 * kBK * 4 <= panel ? bytes : 0;
 }
 
-template <class A, class B>
-__device__ __forceinline__ void any_tile(const Gemm<A, B>& g, int cta,
-                                         float (&As)[kBK][kBM],
-                                         float (&Bs)[kBK][kBN]) {
-  if (g.split == 1) {
-    gemm_tile<false>(g, cta, As, Bs);
-  } else {
-    gemm_tile<true>(g, cta, As, Bs);
-  }
+// Whether an fp32 lhs (element (m, k) at a[m * sam + k * sak]) takes the
+// panel path (panel_kernel's conditions).
+bool panel_path(const void* a, long long sam, long long sak, int M, int N,
+                int K, int split) {
+  return sak == 1 && sam == K && K % 4 != 0 && M % 4 == 0 && M > 0 &&
+         (uintptr_t)a % 16 == 0 && split == 1 && N <= 64 &&
+         panel_smem(K) > 0;
 }
 
-// The backward pair in one launch: the grid covers the CTAs of dX, then
-// those of dW, and a block computes the GEMM its index falls in — the
-// Hopper form of the Pallas kernel's two-phase 1-D grid.
-template <class A1, class B1, class A2, class B2>
-__global__ void __launch_bounds__(kThreads)
-pair_kernel(Gemm<A1, B1> g1, Gemm<A2, B2> g2) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  const int t = blockIdx.x;
-  if (t < g1.ctas) {
-    any_tile(g1, t, As, Bs);
-  } else {
-    any_tile(g2, t - g1.ctas, As, Bs);
-  }
+template <class B>
+int launch_panel(const void* a, int M, int K, int mb, const B& b, void* c,
+                 int N, void* stream) {
+  const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
+  const Panel pa{(const float*)a, M, K, kp, mb, (M + kBM - 1) / kBM,
+                 (kBM * K * 4 + 1023) / 1024 * 1024};
+  const int bytes = panel_smem(K);
+  auto kernel = panel_kernel<B>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       bytes);
+  kernel<<<min(pa.tiles, sm_count()), kThreads, bytes,
+           (cudaStream_t)stream>>>(pa, b, (float*)c, N);
+  return (int)cudaGetLastError();
 }
 
 // c[i] = ws[0][i] + ws[1][i] + ... + ws[split - 1][i], in that order.
@@ -316,9 +995,22 @@ __global__ void split_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
-template <class A, class B>
-void launch_reduce(const Gemm<A, B>& g, cudaStream_t stream) {
-  if (g.split == 1 || g.tiles == 0) return;
+// The tile width BN as a function of N (mx_matmul.py::tile_n).
+inline bool narrow(int n) { return n <= 64; }
+
+template <int BN, class A, class B>
+Gemm<BN, A, B> make_gemm(A a, B b, void* c, int M, int N, int kp, int split,
+                         int chunk, void* ws) {
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = (M + kBM - 1) / kBM * tiles_n;
+  return Gemm<BN, A, B>{a,      b,     (float*)c, (float*)ws, M,
+                        N,      kp,    split,     chunk,      tiles_n,
+                        tiles,  tiles * split};
+}
+
+template <int BN, class A, class B>
+void launch_reduce(const Gemm<BN, A, B>& g, cudaStream_t stream) {
+  if (g.split == 1 || g.units == 0) return;
   const long long mn = (long long)g.M * g.N;
   const int threads = 256;
   const long long blocks = min((mn + threads - 1) / threads, 8LL * 1024);
@@ -326,17 +1018,116 @@ void launch_reduce(const Gemm<A, B>& g, cudaStream_t stream) {
                                                            g.split);
 }
 
-template <class A, class B>
-int launch(const Gemm<A, B>& g, void* stream) {
+// An empty contraction (Kp = 0) is a zero output.
+template <int BN, class A, class B>
+bool empty(const Gemm<BN, A, B>& g, cudaStream_t s) {
+  if (g.units > 0 && g.kp == 0) {
+    cudaMemsetAsync(g.c, 0, sizeof(float) * g.M * g.N, s);
+  }
+  return g.units == 0 || g.kp == 0;
+}
+
+template <int BN, class A, class B>
+int launch(const Gemm<BN, A, B>& g, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (g.ctas > 0 && g.split == 1) {
-    gemm_kernel<false, A, B><<<g.ctas, kThreads, 0, s>>>(g);
-  } else if (g.ctas > 0) {
-    gemm_kernel<true, A, B><<<g.ctas, kThreads, 0, s>>>(g);
+  if (!empty(g, s)) {
+    auto go = [&](auto res) {
+      constexpr bool kResB = decltype(res)::value;
+      constexpr int bytes = Layout<BN, A, B, kResB>::kBytes;
+      auto kernel = gemm_kernel<kResB, BN, A, B>;
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel<<<min(g.units, sm_count()), kThreads, bytes, s>>>(g);
+    };
+    if constexpr (BN == 64) {
+      if (g.split == 1 && g.tiles_n == 1 && g.kp <= kResKp) {
+        go(std::true_type{});
+      } else {
+        go(std::false_type{});
+      }
+    } else {
+      go(std::false_type{});
+    }
     launch_reduce(g, s);
   }
   return (int)cudaGetLastError();
 }
+
+template <int BN1, class A1, class B1, int BN2, class A2, class B2>
+int launch_pair(const Gemm<BN1, A1, B1>& g1, const Gemm<BN2, A2, B2>& g2,
+                cudaStream_t s) {
+  const bool skip1 = empty(g1, s), skip2 = empty(g2, s);
+  const int ctas1 = skip1 ? 0 : min(g1.units, sm_count());
+  const int ctas2 = skip2 ? 0 : min(g2.units, sm_count());
+  if (ctas1 + ctas2 > 0) {
+    constexpr int b1 = Layout<BN1, A1, B1>::kBytes;
+    constexpr int b2 = Layout<BN2, A2, B2>::kBytes;
+    constexpr int bytes = b1 > b2 ? b1 : b2;
+    auto kernel = pair_kernel<Gemm<BN1, A1, B1>, Gemm<BN2, A2, B2>>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    kernel<<<ctas1 + ctas2, kThreads, bytes, s>>>(g1, g2, ctas1);
+    if (!skip1) launch_reduce(g1, s);
+    if (!skip2) launch_reduce(g2, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The driver's cuTensorMapEncodeTiled, found once through the runtime (no
+// link against the driver library).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(sym);
+    }
+  }
+  return fn;
+}
+
+// An fp32 operand of X rows: element (x, k) at p[x * sx + k * sk].
+template <int X>
+F32Op<X> f32_op(const void* p, long long sx, long long sk, int ext_x,
+                int ext_k, int mb) {
+  F32Op<X> op{};
+  op.p = (const float*)p;
+  op.sx = sx;
+  op.sk = sk;
+  op.ext_x = ext_x;
+  op.ext_k = ext_k;
+  op.mb = mb;
+  op.inner_k = !(sx == 1 && sk != 1);
+  const long long inner = op.inner_k ? sk : sx, outer = op.inner_k ? sx : sk;
+  auto encode = tensor_map_encoder();
+  if (inner == 1 && outer % 4 == 0 && (uintptr_t)p % 16 == 0) {
+    // A stride-1 inner axis and 16-byte aligned rows: the slab as boxes of
+    // 32 inner values by its outer rows, 128-byte swizzled, zero-filled
+    // past the edges. 4-byte cp.async where TMA does not take it.
+    const cuuint64_t dims[2] = {
+        (cuuint64_t)(op.inner_k ? ext_k : ext_x),
+        (cuuint64_t)(op.inner_k ? ext_x : ext_k)};
+    const cuuint64_t strides[1] = {(cuuint64_t)outer * 4};
+    const cuuint32_t box[2] = {32, (cuuint32_t)(op.inner_k ? X : kBK)};
+    const cuuint32_t unit[2] = {1, 1};
+    op.tma = encode != nullptr && dims[0] > 0 && dims[1] > 0 &&
+             encode(&op.tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                    const_cast<void*>(p), dims, strides, box, unit,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE,
+                    CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
+  return op;
+}
+
+using LhsF32 = F32Op<kBM>;
+using LhsMX = MXOp<kBM, true>;
+template <int BN>
+using RhsMX = MXOp<BN, false>;
 
 }  // namespace
 
@@ -346,7 +1137,7 @@ int launch(const Gemm<A, B>& g, void* stream) {
 // mantissa bits (2 / 4 / 7). (split, chunk, ws) is the GEMM's split of
 // its contraction (mx_matmul.py::gemm_split_plan) and, where split > 1,
 // an fp32 workspace [split, M, N]. The wrapper checks devices, types,
-// shapes and the 16-byte alignment of MX mantissa rows.
+// shapes and the 16-byte alignment of MX tensors.
 
 // Unfused: lhs MXTensor K-last (mantissa [M, Kp]), rhs MXTensor K-first
 // (mantissa [Kp, N]) -> c [M, N].
@@ -355,9 +1146,17 @@ extern "C" int mx_gemm_mx(const void* lm, const void* le, const void* lx,
                           const void* rx, int mb_b, void* c, int M, int N,
                           int Kp, int split, int chunk, void* ws,
                           void* stream) {
-  LhsMX a{(const int8_t*)lm, (const int8_t*)le, (const uint8_t*)lx, Kp, mb_a};
-  RhsMX b{(const int8_t*)rm, (const int8_t*)re, (const uint8_t*)rx, N, mb_b};
-  return launch(make_gemm(a, b, c, M, N, Kp, split, chunk, ws), stream);
+  LhsMX a{(const int8_t*)lm, (const int8_t*)le, (const uint8_t*)lx, Kp,
+          Kp / mx::kBlock, M, Kp, mb_a};
+  if (narrow(N)) {
+    const RhsMX<64> b{(const int8_t*)rm, (const int8_t*)re,
+                      (const uint8_t*)rx, N, N, N, Kp, mb_b};
+    return launch(make_gemm<64>(a, b, c, M, N, Kp, split, chunk, ws),
+                  stream);
+  }
+  const RhsMX<128> b{(const int8_t*)rm, (const int8_t*)re,
+                     (const uint8_t*)rx, N, N, N, Kp, mb_b};
+  return launch(make_gemm<128>(a, b, c, M, N, Kp, split, chunk, ws), stream);
 }
 
 // Fused: fp32 a (element (m, k) at a[m * sam + k * sak]) and fp32 b
@@ -367,9 +1166,20 @@ extern "C" int mx_gemm_fused(const void* a, long long sam, long long sak,
                              long long sbn, int mb_b, void* c, int M, int N,
                              int K, int split, int chunk, void* ws,
                              void* stream) {
-  LhsF32 la{(const float*)a, sam, sak, mb_a};
-  RhsF32 rb{(const float*)b, sbk, sbn, mb_b};
-  return launch(make_gemm(la, rb, c, M, N, K, split, chunk, ws), stream);
+  const LhsF32 la = f32_op<kBM>(a, sam, sak, M, K, mb_a);
+  const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
+  if (panel_path(a, sam, sak, M, N, K, split)) {
+    return launch_panel(a, M, K, mb_a, f32_op<64>(b, sbn, sbk, N, K, mb_b),
+                        c, N, stream);
+  }
+  if (narrow(N)) {
+    return launch(make_gemm<64>(la, f32_op<64>(b, sbn, sbk, N, K, mb_b), c,
+                                M, N, kp, split, chunk, ws),
+                  stream);
+  }
+  return launch(make_gemm<128>(la, f32_op<128>(b, sbn, sbk, N, K, mb_b), c,
+                               M, N, kp, split, chunk, ws),
+                stream);
 }
 
 // Weight-resident serving: fp32 a quantized in-tile, a stored rhs-layout
@@ -379,9 +1189,28 @@ extern "C" int mx_gemm_prequant(const void* a, long long sam, long long sak,
                                 const void* rx, int mb_b, void* c, int M,
                                 int N, int K, int split, int chunk, void* ws,
                                 void* stream) {
-  LhsF32 la{(const float*)a, sam, sak, mb_a};
-  RhsMX b{(const int8_t*)rm, (const int8_t*)re, (const uint8_t*)rx, N, mb_b};
-  return launch(make_gemm(la, b, c, M, N, K, split, chunk, ws), stream);
+  const LhsF32 la = f32_op<kBM>(a, sam, sak, M, K, mb_a);
+  const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
+  if (panel_path(a, sam, sak, M, N, K, split)) {
+    return launch_panel(a, M, K, mb_a,
+                        RhsMX<64>{(const int8_t*)rm, (const int8_t*)re,
+                                  (const uint8_t*)rx, N, N, N, kp, mb_b},
+                        c, N, stream);
+  }
+  if (narrow(N)) {
+    return launch(make_gemm<64>(la, RhsMX<64>{(const int8_t*)rm,
+                                               (const int8_t*)re,
+                                               (const uint8_t*)rx, N, N, N,
+                                               kp, mb_b},
+                                c, M, N, kp, split, chunk, ws),
+                  stream);
+  }
+  return launch(make_gemm<128>(la, RhsMX<128>{(const int8_t*)rm,
+                                              (const int8_t*)re,
+                                              (const uint8_t*)rx, N, N, N,
+                                              kp, mb_b},
+                               c, M, N, kp, split, chunk, ws),
+                stream);
 }
 
 // Backward pair of y = x @ w: g [M, N], x [M, K], w [K, N], row-major.
@@ -391,25 +1220,28 @@ extern "C" int mx_gemm_prequant(const void* a, long long sam, long long sak,
 //       quantized along M; g read as an rhs, quantized in 16-row slabs
 //       along M — the same cotangent quantized a second time, along the
 //       other axis, as the Pallas kernel does.
-// One launch covers the (tile, chunk) CTAs of both; a reduce launch
-// follows for each GEMM whose split is above 1.
+// One launch covers the units of both; a reduce launch follows for each
+// GEMM whose split is above 1.
 extern "C" int mx_gemm_bwd_pair(const void* g, const void* x, const void* w,
                                 int mb, void* dx, void* dw, int M, int N,
                                 int K, int split_dx, int chunk_dx,
                                 void* ws_dx, int split_dw, int chunk_dw,
                                 void* ws_dw, void* stream) {
-  LhsF32 g_lhs{(const float*)g, N, 1, mb};
-  RhsF32 wt_rhs{(const float*)w, 1, N, mb};
-  LhsF32 xt_lhs{(const float*)x, 1, K, mb};
-  RhsF32 g_rhs{(const float*)g, N, 1, mb};
-  auto g1 = make_gemm(g_lhs, wt_rhs, dx, M, K, N, split_dx, chunk_dx, ws_dx);
-  auto g2 = make_gemm(xt_lhs, g_rhs, dw, K, N, M, split_dw, chunk_dw, ws_dw);
+  const LhsF32 g_lhs = f32_op<kBM>(g, N, 1, M, N, mb);
+  const LhsF32 xt_lhs = f32_op<kBM>(x, 1, K, K, M, mb);
+  const int np = (N + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
+  const int mp = (M + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
   cudaStream_t s = (cudaStream_t)stream;
-  int ctas = g1.ctas + g2.ctas;
-  if (ctas > 0) {
-    pair_kernel<<<ctas, kThreads, 0, s>>>(g1, g2);
-    launch_reduce(g1, s);
-    launch_reduce(g2, s);
-  }
-  return (int)cudaGetLastError();
+  auto go = [&](auto bn1, auto bn2) {
+    constexpr int BN1 = decltype(bn1)::value, BN2 = decltype(bn2)::value;
+    auto g1 = make_gemm<BN1>(g_lhs, f32_op<BN1>(w, N, 1, K, N, mb), dx, M, K,
+                             np, split_dx, chunk_dx, ws_dx);
+    auto g2 = make_gemm<BN2>(xt_lhs, f32_op<BN2>(g, 1, N, N, M, mb), dw, K,
+                             N, mp, split_dw, chunk_dw, ws_dw);
+    return launch_pair(g1, g2, s);
+  };
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  if (narrow(K)) return narrow(N) ? go(I64{}, I64{}) : go(I64{}, I128{});
+  return narrow(N) ? go(I128{}, I64{}) : go(I128{}, I128{});
 }

@@ -30,8 +30,8 @@
 //
 // Numerics: the quantize arithmetic is mx_common.cuh's, shared with the
 // GEMM kernels (mx_gemm.cu); compiled without --use_fast_math (no
-// flush-to-zero), rounding with rintf (half to even, as jnp.round), exact
-// power-of-two scales.
+// flush-to-zero), rounding half to even as jnp.round (rintf's result, by
+// mx_common.cuh::round_clip), exact power-of-two scales.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -27,22 +27,34 @@ from repro_torch.kernels import mx_quantize as _mq
 from repro_torch.kernels.ref import BLOCK, MANTISSA_BITS, MXTensor
 
 INT32_MAX = 2 ** 31 - 1
-TILE = 128  # the GEMM kernel's output tile is TILE x TILE
-WAVE_CTAS = 2 * SMS  # two 256-thread GEMM CTAs fit on an SM
+TILE_M = 128  # rows of the GEMM kernel's output tile: two warpgroups of 64
+WAVE_CTAS = SMS  # one GEMM CTA an SM (its operand ring fills shared memory)
 MIN_CHUNK_BLOCKS = 32  # at least 512 of the contraction per (tile, chunk)
+
+
+def tile_n(n: int) -> int:
+    """Columns of the GEMM kernel's output tile for an output N wide (the
+    width of its wgmma, csrc/mx_gemm.cu::narrow): 64 for N <= 64, else
+    128."""
+    return 64 if n <= 64 else 128
+
+
+def gemm_tiles(m: int, n: int) -> int:
+    """Output tiles (TILE_M x tile_n(n)) of an [m, n] GEMM."""
+    return -(-m // TILE_M) * -(-n // tile_n(n))
 
 
 def gemm_split_plan(m: int, n: int, kp: int) -> Tuple[int, int]:
     """(S, chunk): the contraction [0, kp) of an [m, n] output, kp a
     multiple of 16, cut into S chunks of ``chunk`` (a multiple of 16; the
-    last may be shorter). S = 1 where the output's TILE x TILE tiles fill
-    the card; otherwise enough chunks for two CTAs on every SM, each at
-    least MIN_CHUNK_BLOCKS MX blocks long."""
+    last may be shorter). S = 1 where the output's tiles fill at least
+    half the card; otherwise as many chunks as keep the (tile, chunk)
+    units within one wave of WAVE_CTAS persistent CTAs, so that each CTA
+    takes at most one, each at least MIN_CHUNK_BLOCKS MX blocks long."""
     blocks = kp // BLOCK
-    tiles = -(-m // TILE) * -(-n // TILE)
-    if tiles >= SMS or blocks < 2 * MIN_CHUNK_BLOCKS:
+    splits = min(WAVE_CTAS // gemm_tiles(m, n), blocks // MIN_CHUNK_BLOCKS)
+    if splits < 2:
         return 1, kp
-    splits = min(-(-WAVE_CTAS // tiles), blocks // MIN_CHUNK_BLOCKS)
     chunk_blocks = -(-blocks // splits)
     return -(-blocks // chunk_blocks), chunk_blocks * BLOCK
 

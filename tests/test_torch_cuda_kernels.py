@@ -2,9 +2,13 @@
 every head dim and dtype of the attention kernel over its options (ragged
 edges, windows with and without causality, query offsets, kv splits with
 fully masked rows, strided and misaligned inputs), and the MX GEMMs where
-their contractions split, each held to its plain version (``kernels/ref.py``)
-with the tolerances of ``chip_smoke.py`` phases 6–7, and each repeated to
-show that the fixed-order splits give the same bits.
+their contractions split, at every tile width (N from 8 to 1000, ragged M,
+K from one MX block to 4608), at the stem's misaligned K = 147 read
+contiguous and through transposed views, and with products in the fp32
+subnormal range, each held to its plain version (``kernels/ref.py``) with
+the tolerances of ``chip_smoke.py`` phases 6–7, the four kernels to the
+bitwise contracts, and each repeated to show that the fixed-order splits
+give the same bits.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip without a card.
 On the card (``--noconftest``: ``tests/conftest.py`` imports JAX, which the
@@ -183,3 +187,98 @@ def test_split_pair_equals_two_fused(card, shape):
     _within_limits(dw, ref._matmul_nt(xq, gq), xq, gq)
     gq1, wq = _qd(g, "mx9"), _qd(w, "mx9")
     _within_limits(dx, ref._matmul_nt(gq1, wq), gq1, wq)
+
+
+def _gemm_operands(m, n, k, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev)
+            for s in ((m, k), (k, n), (m, n))]
+
+
+def _assert_gemm_family(a, b, g, precision):
+    """One GEMM a [M, K] @ b [K, N] through all four kernels: fused =
+    unfused = prequant and the pair (cotangent g [M, N]) = two fused,
+    bitwise; each within both limits of its plain version; a second call
+    of each gives the same bits."""
+    qb = ops.mx_quantize_rhs(b, precision)
+    fused = mxf.mx_matmul_fused_cuda(a, b, precision, precision)
+    prequant = mxf.mx_matmul_prequant_cuda(a, qb, precision)
+    unfused = mxm.mx_matmul_cuda(ops.mx_quantize(a, precision), qb)
+    dx, dw = mxf.mx_matmul_bwd_pair_cuda(g, a, b, precision)
+    again = (mxf.mx_matmul_fused_cuda(a, b, precision, precision),
+             mxf.mx_matmul_prequant_cuda(a, qb, precision),
+             *mxf.mx_matmul_bwd_pair_cuda(g, a, b, precision))
+    torch.cuda.synchronize()
+    assert torch.equal(fused, prequant) and torch.equal(fused, unfused)
+    assert torch.equal(dx, mxf.mx_matmul_fused_cuda(g, b.T, precision,
+                                                    precision))
+    assert torch.equal(dw, mxf.mx_matmul_fused_cuda(a.T, g, precision,
+                                                    precision))
+    for first, second in zip((fused, prequant, dx, dw), again):
+        assert torch.equal(first, second)
+    aq, bq = _qd(a, precision), _qd(b.T, precision)
+    _within_limits(fused, ref._matmul_nt(aq, bq), aq, bq)
+    gq, wq = _qd(g, precision), _qd(b, precision)
+    _within_limits(dx, ref._matmul_nt(gq, wq), gq, wq)
+    xq, gq2 = _qd(a.T, precision), _qd(g.T, precision)
+    _within_limits(dw, ref._matmul_nt(xq, gq2), xq, gq2)
+
+
+# Every tile width (N = 8 and 64 take 64-wide tiles, the rest 128), ragged
+# and one-row M, and K from one MX block to layer4's 4608.
+@pytest.mark.parametrize("k", [16, 147, 4608])
+@pytest.mark.parametrize("n", [8, 64, 100, 128, 256, 1000])
+@pytest.mark.parametrize("m", [1, 63, 64, 130])
+def test_gemm_tiles_match_plain_and_contracts(card, m, n, k):
+    a, b, g = _gemm_operands(m, n, k, card, seed=m * 7 + n * 3 + k)
+    _assert_gemm_family(a, b, g, "mx9" if (m + n + k) % 2 else "mx6")
+
+
+@pytest.mark.parametrize("rhs_strided", [False, True],
+                         ids=["lhs-strided", "both-strided"])
+def test_gemm_stem_k147_contiguous_and_strided(card, rhs_strided):
+    """The stem's misaligned K = 147 (588-byte rows): read contiguous, and
+    as transposed views (strides (1, M) and (1, K)) — the same bits as the
+    contiguous call, within both limits of the plain version."""
+    m, n, k = 1000, 64, 147
+    gen = torch.Generator(device=card).manual_seed(4)
+    a_t = torch.randn((k, m), generator=gen, device=card)
+    b_t = torch.randn((n, k), generator=gen, device=card)
+    a, b = a_t.T, (b_t.T if rhs_strided else b_t.T.contiguous())
+    want = mxf.mx_matmul_fused_cuda(a.contiguous(), b.contiguous(), "mx9",
+                                    "mx9")
+    got = mxf.mx_matmul_fused_cuda(a, b, "mx9", "mx9")
+    qb = ops.mx_quantize_rhs(b.contiguous(), "mx6")
+    pre = mxf.mx_matmul_prequant_cuda(a, qb, "mx6")
+    pre_c = mxf.mx_matmul_prequant_cuda(a.contiguous(), qb, "mx6")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(pre, pre_c)
+    aq, bq = _qd(a, "mx9"), _qd(b.T, "mx9")
+    _within_limits(got, ref._matmul_nt(aq, bq), aq, bq)
+    _assert_gemm_family(a.contiguous(), b.contiguous(),
+                        torch.randn((m, n), generator=gen, device=card),
+                        "mx9")
+
+
+@pytest.mark.parametrize("k", [147, 4608])
+def test_gemm_subnormal_scales(card, k):
+    """Blocks whose shared exponent is at most -120 (values near 2^-125)
+    against O(1) operands — whole rhs columns, one K-block of the other
+    columns, one lhs row — held to both limits of the plain version. A
+    dequantized value is never subnormal (a nonzero input is at least
+    2^-126 and rounds to a multiple of a power of two), but the lhs row's
+    products with the O(1) columns are fp32 subnormals, exact in the plain
+    fp32 matmul: the tensor cores must not flush them."""
+    m, n = 130, 100
+    a, b, g = _gemm_operands(m, n, k, card, seed=5)
+    tiny = 2.0 ** -125
+    b[:, :8] *= tiny
+    b[16:32, 8:] *= tiny
+    a[0] *= tiny
+    g[:, :4] *= tiny
+    aq, bq = _qd(a, "mx9"), _qd(b.T, "mx9")
+    exps = torch.frexp(torch.cat([bq[:8], aq[:1]]).abs().amax(1))[1] - 1
+    assert bool((exps <= -120).all())
+    prods = aq[0] * bq[8:]
+    assert bool(((prods != 0) & (prods.abs() < 2.0 ** -126)).any())
+    _assert_gemm_family(a, b, g, "mx9")

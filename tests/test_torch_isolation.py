@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
-``attention_mutants.py`` import neither ``jax`` nor the JAX package, and
-its entry points default to the card and refuse to run without one."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
+``attention_mutants.py`` and ``gemm_ablation.py`` import neither ``jax``
+nor the JAX package, and its entry points default to the card and refuse
+to run without one."""
 import ast
 import subprocess
 import sys
@@ -11,7 +12,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "attention_mutants.py"]
+    ROOT / "chip_smoke.py", ROOT / "attention_mutants.py",
+    ROOT / "gemm_ablation.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

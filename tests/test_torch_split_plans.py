@@ -63,16 +63,20 @@ def _assert_plan_covers(m: int, n: int, kp: int, plan) -> None:
     assert chunks[0][0] == 0 and chunks[-1][1] == kp
     for (lo, hi), (lo_next, _) in zip(chunks, chunks[1:] + [(kp, kp)]):
         assert lo % 16 == 0 and lo < hi == lo_next
-    tiles = -(-m // tmm.TILE) * -(-n // tmm.TILE)
-    if tiles >= tmm.SMS:
+    tiles = -(-m // tmm.TILE_M) * -(-n // tmm.tile_n(n))
+    assert tiles == tmm.gemm_tiles(m, n)
+    if 2 * tiles > tmm.SMS:
         assert splits == 1
+    # One wave: every (tile, chunk) unit has a persistent CTA of its own.
+    assert splits == 1 or tiles * splits <= tmm.WAVE_CTAS
 
 
 @pytest.mark.parametrize("shape", RESNET18_GEMMS, ids=str)
 def test_gemm_plans_cover_the_contraction(shape):
     """Forward, pair dX and pair dW of each GEMM: chunks on 16-multiples
-    cover [0, Kp) exactly, S = 1 where the tiles fill 132 SMs, and the
-    pair's plans are those of fused(g, w^T) and fused(x^T, g)."""
+    cover [0, Kp) exactly, S = 1 where the tiles fill half of 132 SMs or
+    more, at most one unit a CTA where S > 1, and the pair's plans are
+    those of fused(g, w^T) and fused(x^T, g)."""
     m, n, k = shape
     _assert_plan_covers(m, n, _pad16(k), tmf.fused_plan(m, n, k))
     plan_dx, plan_dw = tmf.pair_plans(m, n, k)
@@ -83,17 +87,53 @@ def test_gemm_plans_cover_the_contraction(shape):
 
 
 def test_gemm_plans_split_the_few_tile_contractions():
-    """The pair's dW at the stem (2 tiles over M = 401,408) and every
-    layer1 dW split; every forward of the stem and layer1 (thousands of
-    tiles) does not."""
+    """The pair's dW at the stem (2 tiles over M = 401,408: one 64-wide
+    tile column) and every layer1 dW split; every forward of the stem and
+    layer1 (thousands of tiles) does not."""
     stem = RESNET18_GEMMS[0]
     assert stem == (401408, 64, 147)
-    assert tmf.pair_plans(*stem)[1][0] > 100
+    assert tmm.gemm_tiles(147, 64) == 2
+    assert tmf.pair_plans(*stem)[1][0] == tmm.WAVE_CTAS // 2 == 66
     for m, n, k in RESNET18_GEMMS[:5]:
         assert tmf.fused_plan(m, n, k)[0] == 1
         assert tmf.pair_plans(m, n, k)[1][0] > 1
     # A short contraction never splits, however few its tiles.
     assert tmm.gemm_split_plan(32, 1000, 512) == (1, 512)
+
+
+@pytest.mark.parametrize("n, width", [(1, 64), (8, 64), (64, 64),
+                                      (65, 128), (100, 128), (128, 128),
+                                      (256, 128), (1000, 128)])
+def test_tile_width_is_a_function_of_n(n, width):
+    """The kernel's tile is TILE_M x tile_n(N): 64 columns up to N = 64
+    (the stem and layer1 fill their tiles), else 128."""
+    assert tmm.TILE_M == 128
+    assert tmm.tile_n(n) == width
+    assert tmm.gemm_tiles(130, n) == 2 * -(-n // width)
+
+
+# The card tests' shapes (tests/test_torch_cuda_kernels.py): every tile
+# width, ragged M, and K from one MX block to layer4's 4608.
+CARD_MS, CARD_NS, CARD_KS = (1, 63, 64, 130), (8, 64, 100, 128, 256,
+                                                1000), (16, 147, 4608)
+
+
+@pytest.mark.parametrize("k", CARD_KS)
+@pytest.mark.parametrize("m", CARD_MS)
+def test_gemm_plans_cover_card_shapes(m, k):
+    """At every shape of the card tests the plans of the forward and of the
+    pair cover [0, Kp) on 16-multiples, keep one wave of units, and the
+    pair's plans are the two fused plans."""
+    for n in CARD_NS:
+        _assert_plan_covers(m, n, _pad16(k), tmf.fused_plan(m, n, k))
+        plan_dx, plan_dw = tmf.pair_plans(m, n, k)
+        assert plan_dx == tmf.fused_plan(m, k, n)
+        assert plan_dw == tmf.fused_plan(k, n, m)
+        _assert_plan_covers(m, k, _pad16(n), plan_dx)
+        _assert_plan_covers(k, n, _pad16(m), plan_dw)
+    # One tile over the longest contraction splits; one MX block never.
+    assert tmf.fused_plan(m, 8, 4608)[0] > 1
+    assert tmf.fused_plan(m, 1000, 16) == (1, 16)
 
 
 def _jax_fused(a: np.ndarray, b: np.ndarray, precision: str) -> np.ndarray:
