@@ -18,10 +18,13 @@ exits non-zero without printing a result:
    plain version and bound (bytes over 3.35 TB/s) at each leaf shape.
 4. session — the port's main path: ``CLSystemSpec(RESNET18, WIDERESNET50,
    "dacapo-spatiotemporal", apply_mx=True, device="cuda")``, pretrained on
-   the card, run for 45 s of virtual time over S1; the MX serving copies
-   must have gone through the kernels (launch counters and
-   ``kernel_stats``), and the student's MX6 serving tree and forward must
-   agree with the port's plain CPU path.
+   the card, run for 45 s of virtual time over S1 — twice, each from a
+   fresh build and a fresh ``np.random.default_rng(0)``, and the two runs
+   must agree bit for bit (phase logs, drift events, average accuracy,
+   the student's parameters, launch counts); the MX serving copies must
+   have gone through the kernels (launch counters and ``kernel_stats``),
+   and the student's MX6 serving tree and forward must agree with the
+   port's plain CPU path.
 5. full width — InferenceKernel / LabelingKernel at the full Table III
    configs (224 px, 1000 classes, random weights), MX6 serving copies
    filled through the kernels and checked bitwise against the plain
@@ -45,7 +48,10 @@ exits non-zero without printing a result:
    of each GEMM's fused and prequant launch beside its bound; as a
    yardstick only, not the same function, ``torch.matmul`` in bf16 on the
    stem's pre-dequantized operands (``library_ms`` stays null: no PyTorch
-   call computes an MX GEMM).
+   call computes an MX GEMM). The backward pair is also timed per GEMM,
+   with its conversion stage alone, and as a pass of its 21 launches
+   alone, beside its bound and its staged floor (the bytes of the staged
+   operands counted too).
 7. attention — the flash-attention kernel against its plain version on
    the card, within 2e-5 (fp32) / 2e-2 (bf16) absolute and relative and
    with the error's RMS within 2^-12 (fp32) / 2^-6 (bf16) of the plain
@@ -60,8 +66,9 @@ exits non-zero without printing a result:
    the same function, beside the bound (bytes over 3.35 TB/s, 4·B·H·D
    FLOPs per unmasked pair over 989 TFLOP/s). ``attention_mutants.py``
    shows that this check fails a faulty kv combine on the card.
-8. vit     — the paper's second pair on the card: the phase-4 session with
-   the ViT-B/32 student and ViT-B/16 teacher (attention served by the
+8. vit     — the paper's second pair on the card: the phase-4 session,
+   twice and bit for bit the same, with the ViT-B/32 student and ViT-B/16
+   teacher (attention served by the
    kernel only, MX6 copies by the quantize kernels, the same card-vs-CPU
    checks); full width at 224 px with random weights, batch 32 — the
    ViT-B/32 InferenceKernel and the ViT-B/16 LabelingKernel, MX6 fills
@@ -168,30 +175,26 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def session_phase(tag: str, student, teacher, path_kernels):
-    """Phases 4 and 8: ``CLSystemSpec(student, teacher,
-    "dacapo-spatiotemporal", apply_mx=True, device="cuda")``, pretrained on
-    the card, run for 45 s of virtual time over S1. Every kernel of
-    ``path_kernels`` must have launched in the run and served all its calls
-    (counts set to 0 just before the run, read just after); the student's
-    MX6 serving tree must equal the port's plain CPU path bitwise, its
-    logits within 1e-3. Returns the run's launch counts and kernel_stats."""
+def session_run(student, teacher):
+    """One repeatable run of the main path: a fresh ``CLSystemSpec(student,
+    teacher, "dacapo-spatiotemporal", apply_mx=True).build()`` and a fresh
+    ``np.random.default_rng(0)``, teacher and student pretrained on the
+    device, then 45 s of virtual time over S1 (launch counts and
+    kernel_stats set to 0 just before the run). Returns the session, the
+    stream, the result, the run's host wall seconds and the pretraining's,
+    and the run's launch counts and kernel_stats."""
     import numpy as np
     import torch
 
-    from repro_torch.core import mx as mx_lib
     from repro_torch.core.session import CLSystemSpec, pretrain_model
     from repro_torch.data.stream import DriftStream, scenario
     from repro_torch.kernels import mx_quantize as mxq
     from repro_torch.kernels import ops
-    from repro_torch.models.registry import make_vision_model
-    from repro_torch.tree import tree_leaves, tree_map
 
     stream = DriftStream(scenario("S1", 3), seed=5, img=24)
-    spec = CLSystemSpec(student=student, teacher=teacher,
-                        allocator="dacapo-spatiotemporal", apply_mx=True,
-                        device="cuda")
-    session = spec.build()
+    session = CLSystemSpec(student=student, teacher=teacher,
+                           allocator="dacapo-spatiotemporal", apply_mx=True,
+                           device="cuda").build()
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     tp = pretrain_model(session.teacher, stream, 25, 32, rng)
@@ -199,19 +202,76 @@ def session_phase(tag: str, student, teacher, path_kernels):
                         segments=stream.segments[:1], seed=8)
     session.set_pretrained(tp, sp)
     torch.cuda.synchronize()
-    log(tag, f"{student.name} / {teacher.name}: pretrained teacher 25x32 + "
-        f"student 15x32 on the card in {time.perf_counter() - t0:.2f} s")
+    pretrain_s = time.perf_counter() - t0
     mxq.reset_launch_counts()
     ops.reset_kernel_stats()
     t0 = time.perf_counter()
     res = session.run(stream, duration=45.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = mxq.launch_counts()
-    stats = ops.kernel_stats()
-    log(tag, f"phases {len(res.phase_log)}, drift events "
-        f"{res.drift_events}, avg accuracy {res.avg_accuracy:.4f}, wall "
-        f"{wall:.2f} s, launches {launches}, kernel_stats {stats}")
+    return (session, stream, res, wall, pretrain_s, mxq.launch_counts(),
+            ops.kernel_stats())
+
+
+def run_differences(first, second) -> list:
+    """What differs between two :func:`session_run` results (empty when
+    they agree bit for bit): phase count, drift events, phase logs
+    (per-phase accuracies, virtual-clock times), average accuracy, the
+    student's parameters and the launch counts."""
+    from repro_torch.tree import tree_leaves
+
+    (s1, _, r1, *_, l1, _), (s2, _, r2, *_, l2, _) = first, second
+    diffs = []
+    if len(r1.phase_log) != len(r2.phase_log):
+        diffs.append(f"phases {len(r1.phase_log)} != {len(r2.phase_log)}")
+    if r1.drift_events != r2.drift_events:
+        diffs.append(f"drift events {r1.drift_events} != {r2.drift_events}")
+    for i, (a, b) in enumerate(zip(r1.phase_log, r2.phase_log)):
+        if a != b:
+            diffs.append(f"phase {i}: {a} != {b}")
+            break
+    if r1.avg_accuracy != r2.avg_accuracy:
+        diffs.append(f"avg accuracy {r1.avg_accuracy!r} != "
+                     f"{r2.avg_accuracy!r}")
+    p1, p2 = tree_leaves(s1.student_params), tree_leaves(s2.student_params)
+    if len(p1) != len(p2) or not all(bitwise(a, b)
+                                     for a, b in zip(p1, p2)):
+        diffs.append("student parameters differ")
+    if l1 != l2:
+        diffs.append(f"launches {l1} != {l2}")
+    return diffs
+
+
+def session_phase(tag: str, student, teacher, path_kernels):
+    """Phases 4 and 8: the main path (:func:`session_run`) run twice on the
+    card, each time from a fresh build and a fresh generator; the two runs
+    must agree bit for bit (:func:`run_differences`). Every kernel of
+    ``path_kernels`` must have launched in the first run and served all
+    its calls; the student's MX6 serving tree must equal the port's plain
+    CPU path bitwise, its logits within 1e-3. Returns the first run's
+    launch counts and kernel_stats."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mx as mx_lib
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    runs = [session_run(student, teacher) for _ in range(2)]
+    for i, (_, _, r, wall, pre_s, counts, st) in enumerate(runs):
+        log(tag, f"run {i + 1}: {student.name} / {teacher.name}: pretrained "
+            f"teacher 25x32 + student 15x32 on the card in {pre_s:.2f} s; "
+            f"phases {len(r.phase_log)}, drift events {r.drift_events}, avg "
+            f"accuracy {r.avg_accuracy!r}, wall {wall:.2f} s, launches "
+            f"{counts}, kernel_stats {st}")
+    diffs = run_differences(*runs)
+    if diffs:
+        raise AssertionError(f"{tag}: two runs of the session differ: "
+                             + "; ".join(diffs))
+    log(tag, "the two runs agree bit for bit: phase logs, drift events, "
+        "average accuracy, student parameters, launch counts")
+    session, stream, res, _, _, launches, stats = runs[0]
+    del runs
     for op in path_kernels:
         served = stats.get(op, {})
         if served.get("cuda", 0) < 1 or served.get("plain", 0) != 0:
@@ -630,6 +690,21 @@ def gemm_bound_ms(name: str, m: int, n: int, k: int):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def pair_staged_floor_ms(m: int, n: int, k: int) -> float:
+    """The least time of the staged pair's bytes: g, x and w read once as
+    fp32; the four bf16 operands (``mx_fused.pair_stage_shapes``) written
+    once and read once; dX and dW written once as fp32 — over 3.35 TB/s
+    (its 4·M·N·K operations take less at the bf16 tensor-core rate at
+    every phase-6 shape)."""
+    from repro_torch.kernels import mx_fused as mxf
+
+    staged = sum(r * c for r, c in mxf.pair_stage_shapes(m, n, k).values())
+    nbytes = 4 * (m * n + m * k + k * n) + 2 * 2 * staged + 4 * (
+        m * k + k * n)
+    return max(nbytes / HBM_BYTES_PER_S,
+               4 * m * n * k / BF16_FLOP_PER_S) * 1e3
+
+
 def gemm_phase(cfg, params, batch: int, dev="cuda"):
     """Phase 6: the MX GEMM kernels on ``cfg``'s GEMMs at ``batch``, with
     the model's real weights. Drives MX9 training (``mx_dense`` forward and
@@ -775,6 +850,13 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
                qd(w, tp))
         xq, gq = qd(a.T, tp), qd(g.T, tp)
         r_dw = within("mx_matmul_bwd_pair", what + " dw", dw, pdw, xq, gq)
+        stage, plain_stage = (mxf.pair_stage_cuda(g, a, w, tp),
+                              ref.mx_pair_stage_ref(g, a, w, tp))
+        if not all(torch.equal(stage[key][:, :t.shape[1]], t)
+                   for key, t in plain_stage.items()):
+            raise AssertionError(f"{what}: the pair's conversion stage != "
+                                 "its plain version")
+        del stage, plain_stage
         if controls:
             wrong_axis = ref._matmul_nt(
                 xq, ops._pad_rows(qd(g, tp)[:, :n], pad_m).T)
@@ -826,7 +908,8 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
                       qb)
     torch.cuda.synchronize()
     log("gemm", f"contracts bitwise (fused = unfused = prequant, pair = two "
-        f"fused) and every kernel within the worst and the typical limit of "
+        f"fused), the pair's conversion stage equal to its plain version, "
+        f"and every kernel within the worst and the typical limit of "
         f"its plain version on all {count} GEMMs and the odd shapes; "
         f"max_abs_err {max_err}; largest err / typical limit {max_reading}; "
         f"smallest control reading (must be > 1) {least_control}")
@@ -875,16 +958,26 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
             "{ms:.4f} ms (plain {plain_ms:.4f} ms), bound {bound_ms:.4f} ms "
             "({bound_by})".format(**row))
         if name == "mx_matmul_bwd_pair":
-            # The pair's two GEMMs alone: bitwise fused(g, w^T) and
+            # Its conversion stage and its two GEMMs alone, and the two
+            # fused launches it equals bitwise, fused(g, w^T) and
             # fused(x^T, g).
-            row["dx_ms"] = time_ms(
+            stage = mxf.pair_stage_cuda(g, a, w, "mx9")
+            row["stage_ms"] = time_ms(
+                lambda: mxf.pair_stage_cuda(g, a, w, "mx9"))
+            row["gemm_ms"] = time_ms(
+                lambda: mxf.pair_gemm_cuda(stage, m, n, k))
+            del stage
+            row["staged_floor_ms"] = pair_staged_floor_ms(m, n, k)
+            row["dx_fused_ms"] = time_ms(
                 lambda: mxf.mx_matmul_fused_cuda(g, w.T, "mx9", "mx9"))
-            row["dw_ms"] = time_ms(
+            row["dw_fused_ms"] = time_ms(
                 lambda: mxf.mx_matmul_fused_cuda(a.T, g, "mx9", "mx9"))
             row["pieces_dx_dw"] = list(plans[big][1:])
-            log("gemm", "mx_matmul_bwd_pair's GEMMs alone, as fused launches: "
-                "dX {dx_ms:.4f} ms, dW {dw_ms:.4f} ms; pieces dX/dW "
-                "{pieces_dx_dw}".format(**row))
+            log("gemm", "mx_matmul_bwd_pair's conversion stage alone "
+                "{stage_ms:.4f} ms, its two GEMMs alone {gemm_ms:.4f} ms "
+                "(staged floor {staged_floor_ms:.4f} ms); as two fused "
+                "launches: dX {dx_fused_ms:.4f} ms, dW {dw_fused_ms:.4f} ms; "
+                "pieces dX/dW {pieces_dx_dw}".format(**row))
     train_ms = pass_ms(
         [fn for a, w, g in zip(acts, ws, cots) for fn in (
             lambda a=a, w=w: mxf.mx_matmul_fused_cuda(a, w, "mx9", "mx9"),
@@ -892,6 +985,11 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
                                                               "mx9"))])
     fwd_ms = pass_ms([lambda a=a, w=w: mxf.mx_matmul_fused_cuda(
         a, w, "mx9", "mx9") for a, w in zip(acts, ws)])
+    pair_pass = pass_ms([lambda a=a, w=w, g=g: mxf.mx_matmul_bwd_pair_cuda(
+        g, a, w, "mx9") for a, w, g in zip(acts, ws, cots)])
+    stage_pass = pass_ms([lambda a=a, w=w, g=g: mxf.pair_stage_cuda(
+        g, a, w, "mx9") for a, w, g in zip(acts, ws, cots)])
+    staged_floor = sum(pair_staged_floor_ms(*shape) for shape in gemms)
     serve_ms = pass_ms([lambda a=a, qw=qw: mxf.mx_matmul_prequant_cuda(
         a, qw, "mx6") for a, qw in zip(acts, qws)])
     flops = sum(2 * m * n * k for m, n, k in gemms)
@@ -906,10 +1004,14 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
         f"prequant launches) {serve_ms:.4f} ms "
         f"({bound['mx_matmul_prequant']:.4f}); {flops / 1e9:.2f} GFLOP per "
         "forward")
-    # Where each pass's time goes: every GEMM's forward kernels alone.
+    log("gemm", f"the {count} pair launches alone {pair_pass:.4f} ms (bound "
+        f"{bound['mx_matmul_bwd_pair']:.4f}, staged floor "
+        f"{staged_floor:.4f}), of which their conversion stages alone "
+        f"{stage_pass:.4f} ms")
+    # Where each pass's time goes: every GEMM's kernels alone.
     per_gemm = []
-    for (m, n, k), a, w, qw, (pieces, _, _) in zip(gemms, acts, ws, qws,
-                                                   plans):
+    for (m, n, k), a, w, g, qw, (pieces, p_dx, p_dw) in zip(
+            gemms, acts, ws, cots, qws, plans):
         row = {"shape_mnk": [m, n, k],
                "tile": [mxm.TILE_M, mxm.tile_n(n)], "pieces": pieces,
                "fused_ms": time_ms(lambda: mxf.mx_matmul_fused_cuda(
@@ -919,12 +1021,22 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
                "prequant_ms": time_ms(lambda: mxf.mx_matmul_prequant_cuda(
                    a, qw, "mx6")),
                "prequant_bound_ms": gemm_bound_ms("mx_matmul_prequant", m,
-                                                  n, k)[0]}
+                                                  n, k)[0],
+               "pair_pieces_dx_dw": [p_dx, p_dw],
+               "pair_ms": time_ms(lambda: mxf.mx_matmul_bwd_pair_cuda(
+                   g, a, w, "mx9")),
+               "pair_stage_ms": time_ms(lambda: mxf.pair_stage_cuda(
+                   g, a, w, "mx9")),
+               "pair_bound_ms": gemm_bound_ms("mx_matmul_bwd_pair", m, n,
+                                              k)[0],
+               "pair_staged_floor_ms": pair_staged_floor_ms(m, n, k)}
         per_gemm.append(row)
         log("gemm", "{shape_mnk} tile {tile} pieces {pieces}: fused mx9 "
             "{fused_ms:.4f} ms (bound {fused_bound_ms:.4f}), prequant mx6 "
-            "{prequant_ms:.4f} ms (bound {prequant_bound_ms:.4f})".format(
-                **row))
+            "{prequant_ms:.4f} ms (bound {prequant_bound_ms:.4f}); pair mx9 "
+            "{pair_ms:.4f} ms, its stage {pair_stage_ms:.4f} ms (bound "
+            "{pair_bound_ms:.4f}, staged floor {pair_staged_floor_ms:.4f}; "
+            "pieces dX/dW {pair_pieces_dx_dw})".format(**row))
     # A yardstick only, not the same function (no quantization, bf16
     # output): torch.matmul in bf16 on the stem's operands dequantized
     # beforehand. library_ms stays null: no PyTorch call computes an MX
@@ -943,8 +1055,11 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
     for row in rows:
         row.update(train_pass_ms=train_ms, serve_pass_ms=serve_ms,
                    forward_pass_ms=fwd_ms, pass_bound_ms=bound)
-        if row["name"] in ("mx_matmul_fused", "mx_matmul_prequant"):
-            row["per_gemm"] = per_gemm
+        if row["name"] == "mx_matmul_bwd_pair":
+            row.update(pass_ms=pair_pass, stage_pass_ms=stage_pass,
+                       staged_floor_pass_ms=staged_floor)
+        if row["name"] == "mx_matmul_fused":
+            row["per_gemm"] = per_gemm  # with the prequant and pair times
     return rows
 
 

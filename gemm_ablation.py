@@ -11,8 +11,18 @@ of its own, and times ``mx_matmul_fused`` (mx9) and ``mx_matmul_prequant``
 (mx6) under each at full-width ResNet18 shapes at batch 32 that take the
 slab ring (layer1 to layer4; the stem takes the panel path, which these
 cuts do not touch). The cut variants compute wrong outputs: they are
-timed, never checked. Prints one JSON line per variant and shape and
-exits 0. Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
+timed, never checked. Then, with the library as built, the backward pair
+(``mx_matmul_bwd_pair``, mx9) at the stem and layer1 to layer4: the whole
+pair, its conversion stage alone (``mx_fused.pair_stage_cuda``) and its
+two GEMMs alone on the staged operands (``mx_fused.pair_gemm_cuda``),
+beside its bound and the staged floor; at the stem and layer1 also the
+pair's alternative design, a fourth library built from ``mx_gemm.cu`` with
+``gemm_ablation_cluster.cu`` appended: no staged copies, each GEMM the
+fused ring in thread-block clusters that convert a shared slab once and
+store it into every CTA's shared memory (checked bitwise against the pair
+as built, then timed whole and each GEMM alone). Prints one JSON line per
+variant and shape and exits 0 (1 if the cluster pair differs from the
+pair as built). Needs one CUDA card and nvcc, as ``chip_smoke.py`` does.
 """
 from __future__ import annotations
 
@@ -28,6 +38,9 @@ sys.path.insert(0, str(ROOT / "src"))
 CSRC = ROOT / "src/repro_torch/kernels/csrc"
 SHAPES = [(100352, 64, 576), (25088, 128, 1152), (6272, 256, 2304),
           (1568, 512, 4608)]
+PAIR_SHAPES = [(401408, 64, 147)] + SHAPES  # the stem, then layer1-4
+CLUSTER_SHAPES = PAIR_SHAPES[:2]  # at most 8 tiles along the shared axis
+CLUSTER = "cluster pair"
 CUTS = {
     "as built": [],
     "no conversion": [
@@ -49,7 +62,7 @@ def build(tmp: Path) -> dict:
     from repro_torch.kernels import mx_quantize as mxq
 
     source = (CSRC / "mx_gemm.cu").read_text()
-    procs = {}
+    texts = {CLUSTER: source + (ROOT / "gemm_ablation_cluster.cu").read_text()}
     for name, cuts in CUTS.items():
         text = source
         for old, new in cuts:
@@ -57,6 +70,9 @@ def build(tmp: Path) -> dict:
                 raise SystemExit(f"gemm_ablation: the {name!r} site is not "
                                  "once in mx_gemm.cu")
             text = text.replace(old, new)
+        texts[name] = text
+    procs = {}
+    for name, text in texts.items():
         out = tmp / name.replace(" ", "_")
         out.mkdir()
         (out / "mx_gemm.cu").write_text(text)
@@ -71,6 +87,8 @@ def build(tmp: Path) -> dict:
     for name, (path, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
+            log = "\n".join(line for line in log.splitlines()
+                            if not line.startswith("ptxas info"))
             raise SystemExit(f"gemm_ablation: {name!r} did not build:\n"
                              f"{log[-4000:]}")
         lib = ctypes.CDLL(str(path))
@@ -78,6 +96,12 @@ def build(tmp: Path) -> dict:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
+        if hasattr(lib, "mx_gemm_pair_cluster"):
+            lib.mx_gemm_pair_cluster.argtypes = (
+                [mxq._PTR] * 3 + [mxq._I32] * 2 + [mxq._PTR] * 2
+                + [mxq._I32] * 5 + [mxq._PTR, mxq._I32, mxq._I32, mxq._PTR,
+                                    mxq._PTR])
+            lib.mx_gemm_pair_cluster.restype = ctypes.c_int
         lib.mx_error_string.argtypes = [ctypes.c_int]
         lib.mx_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -96,6 +120,7 @@ def main() -> None:
     from repro_torch.kernels import ops
 
     print(chip_smoke.nvidia_smi_line(), flush=True)
+    differs = False
     gen = torch.Generator(device="cuda").manual_seed(6)
     data = []
     for m, n, k in SHAPES:
@@ -104,8 +129,8 @@ def main() -> None:
         data.append((a, w, ops.mx_quantize_rhs(w, "mx6")))
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp))
-        for name, lib in libs.items():
-            mxq._lib = lib  # every wrapper launches through this library
+        for name in CUTS:
+            mxq._lib = libs[name]  # every wrapper launches through it
             for (m, n, k), (a, w, qw) in zip(SHAPES, data):
                 print(json.dumps({
                     "variant": name, "shape_mnk": [m, n, k],
@@ -116,7 +141,68 @@ def main() -> None:
                         lambda: mxf.mx_matmul_prequant_cuda(a, qw, "mx6")),
                     "fused_bound_ms": chip_smoke.gemm_bound_ms(
                         "mx_matmul_fused", m, n, k)[0]}), flush=True)
+        mxq._lib = libs["as built"]
+        del data
+        for m, n, k in PAIR_SHAPES:
+            g = torch.randn((m, n), generator=gen, device="cuda")
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            w = torch.randn((k, n), generator=gen, device="cuda")
+            stage = mxf.pair_stage_cuda(g, x, w, "mx9")
+            row = {}
+            if (m, n, k) in CLUSTER_SHAPES:
+                dx, dw = mxf.mx_matmul_bwd_pair_cuda(g, x, w, "mx9")
+                cx, cw = cluster_pair(libs[CLUSTER], g, x, w)
+                same = (chip_smoke.bitwise(cx, dx)
+                        and chip_smoke.bitwise(cw, dw))
+                differs |= not same
+                row = {"cluster_bitwise": same}
+                for key, parts in (("cluster_ms", 3), ("cluster_dx_ms", 1),
+                                   ("cluster_dw_ms", 2)):
+                    row[key] = chip_smoke.time_ms(lambda: cluster_pair(
+                        libs[CLUSTER], g, x, w, parts))
+                del dx, dw, cx, cw
+            print(json.dumps({
+                "variant": "pair", "shape_mnk": [m, n, k],
+                "as_built_ms": chip_smoke.time_ms(
+                    lambda: mxf.mx_matmul_bwd_pair_cuda(g, x, w, "mx9")),
+                "stage_alone_ms": chip_smoke.time_ms(
+                    lambda: mxf.pair_stage_cuda(g, x, w, "mx9")),
+                "gemms_alone_ms": chip_smoke.time_ms(
+                    lambda: mxf.pair_gemm_cuda(stage, m, n, k)),
+                "bound_ms": chip_smoke.gemm_bound_ms(
+                    "mx_matmul_bwd_pair", m, n, k)[0],
+                "staged_floor_ms": chip_smoke.pair_staged_floor_ms(
+                    m, n, k), **row}), flush=True)
+            del g, x, w, stage
         mxq._lib = None
+    if differs:
+        raise SystemExit("gemm_ablation: the cluster pair differs from the "
+                         "pair as built")
+
+
+def cluster_pair(lib, g, x, w, parts=3):
+    """The backward pair (mx9) through ``gemm_ablation_cluster.cu``'s
+    ``mx_gemm_pair_cluster``, with the pair's splits: dX where ``parts``
+    has bit 0, dW where it has bit 1 (the other left unwritten)."""
+    import torch
+
+    from repro_torch.kernels import mx_fused as mxf
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels.mx_matmul import plan_args
+    from repro_torch.kernels.ref import MANTISSA_BITS
+
+    (m, n), k = g.shape, w.shape[0]
+    dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
+    dw = torch.empty((k, n), dtype=torch.float32, device=g.device)
+    plan_dx, plan_dw = mxf.pair_plans(m, n, k)
+    split_dx, _ws_dx = plan_args(m, k, plan_dx, g.device)
+    split_dw, _ws_dw = plan_args(k, n, plan_dw, g.device)
+    code = mxq.launch(lib.mx_gemm_pair_cluster, g.device, g.data_ptr(),
+                      x.data_ptr(), w.data_ptr(), MANTISSA_BITS["mx9"],
+                      parts, dx.data_ptr(), dw.data_ptr(), m, n, k, *split_dx,
+                      *split_dw)
+    mxq.check(lib, code, "mx_gemm_pair_cluster")
+    return dx, dw
 
 
 if __name__ == "__main__":

@@ -5,9 +5,14 @@ kernels) take a ``device`` argument and run on ``cuda`` unless the caller
 asks for the CPU. A request for ``cuda`` on a host without a card raises:
 the port never carries on quietly on the CPU.
 
-This is also where the port sets fp32 precision: TF32 is switched off for
-matmuls and cuDNN convolutions, so the card computes in full fp32 like the
-reference, which pins ``jax_default_matmul_precision`` to float32.
+This is also where the port sets its numerics, process-wide, for every
+device it returns: TF32 is switched off for matmuls and cuDNN convolutions,
+so the card computes in full fp32 like the reference, which pins
+``jax_default_matmul_precision`` to float32; and cuDNN runs only its
+deterministic algorithms, chosen without benchmarking, so a retraining run
+on the card repeats bit for bit like the reference's XLA runs (a
+convolution's weight gradient otherwise sums its tiles with atomics, in an
+order that changes from run to run). Nothing turns either off.
 """
 from __future__ import annotations
 
@@ -31,14 +36,23 @@ def set_fp32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def set_deterministic() -> None:
+    """cuDNN's deterministic algorithms only, and no benchmarking (which
+    may pick another algorithm from run to run); both process-wide."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means ``cuda``. Raises when ``cuda`` is asked for and no
-    card is present; sets fp32 precision for every device it returns."""
+    card is present; sets fp32 precision and deterministic cuDNN for every
+    device it returns."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain CPU path")
     set_fp32_precision()
+    set_deterministic()
     return dev
 

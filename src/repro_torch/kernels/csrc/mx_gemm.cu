@@ -26,7 +26,10 @@
 // layer3 (6272, 256, K) 10.9 (10.6) at 1152, 19.9 (19.4) x3 at 2304, 2.9
 // (2.9) at 128; layer4 (1568, 512, K) 6.7 (5.7) at 2304, 12.4 (10.4) x3
 // at 4608, 1.6 (1.5) at 256; the head (32, 1000, 512) 0.7 (0.2). A pass:
-// 670 (660) us.
+// 670 (660) us. The pair (g, x and w read, dX and dW written) bounds at
+// 171.6 us at the stem, 1245.4 us a pass; staging its operands as bf16
+// (below) adds their bytes written and read once: 305.8 us and 2012.9 us
+// (chip_smoke.pair_staged_floor_ms).
 //
 // Design. A dequantized MX value is an integer of at most 7 bits times a
 // power of two, exact in bf16 down to bf16's smallest subnormal step
@@ -77,6 +80,13 @@
 //       N <= 64, no split: a tile's whole lhs panel (128 rows, one span of
 //       512 K bytes on a 16-byte boundary) comes by one cp.async.bulk
 //       while the tile before converts, and the rhs stays resident.
+//   the backward pair (pair_stage_kernel, pair_kernel) — converts each
+//       operand value once for each axis it is quantized along (in-tile
+//       conversion repeated the cotangent's and the weight's up to 36
+//       times), into bf16 operands written once, then runs two pure bf16
+//       GEMMs on them: a producer warp keeps TMA boxes in flight in a ring
+//       of 4-7 stages, two consumer warpgroups issue wgmma and nothing
+//       else (see "The backward pair, staged" below).
 // Rows past M and columns past N are not stored.
 //
 // Accumulation and order. Each slab's wgmmas start from zero (scale-d =
@@ -93,7 +103,9 @@
 // bit for bit from run to run. An output element's bits depend on its
 // operands' bf16 values, the chunking and the slab order, never on the
 // tile, the path or on which kernel loaded the values, and all four
-// kernels feed the same wgmma sequence the same values. (One exception,
+// kernels feed the same wgmma sequence the same values (the pair's staged
+// GEMMs with their operands K-major or MN-major, which the tensor cores
+// read alike). (One exception,
 // without effect: quantize_block_f gives -0 for a zero mantissa of a
 // negative input, a stored MX mantissa +0. A zero product never changes a
 // sum with a nonzero term, and the promotion, which starts from +0,
@@ -206,6 +218,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
       "{\n.reg .pred done;\nwait_%=:\n"
@@ -262,8 +280,26 @@ __device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int scale_d) {
+// wgmma shared-memory descriptor of a tile that TMA wrote with the 128-byte
+// swizzle (1024-byte aligned atoms of 8 rows x 128 bytes). K-major (rows
+// the M or N index, 64 bf16 of the contraction a row): 8-row groups
+// `sbo` = 1024 bytes apart, k16 step kk 32 kk bytes in. MN-major (rows the
+// contraction, 64 M or N indices a row): 8-row groups `sbo` = 1024 bytes
+// apart along the contraction, 64-wide atoms `lbo` bytes apart along M or
+// N, k16 step kk 2048 kk bytes in.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p,
+                                               uint32_t lbo = 16) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// wgmma with bf16 operands from shared memory: both K-major (kT = 0; the
+// forward GEMMs' ring, the pair's dX) or both MN-major (kT = 1, read
+// transposed: the pair's dW).
+template <int kT>
+__device__ __forceinline__ void wgmma_m64n64t(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -271,7 +307,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -279,7 +315,74 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kT));
+}
+
+template <int kT>
+__device__ __forceinline__ void wgmma_m64n128t(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kT));
+}
+
+template <int kT>
+__device__ __forceinline__ void wgmma_m64n152t(float (&d)[76], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %78, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n152k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75"
+      "}, %76, %77, p, 1, 1, %79, %79;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kT));
 }
 
 // 16 dequantized values of unit (x, kb) as bf16 into the K-major
@@ -566,7 +669,7 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 4], uint64_t da,
   if constexpr (BN == 64) {
     wgmma_m64n32(d, da, db, scale_d);
   } else {
-    wgmma_m64n64(d, da, db, scale_d);
+    wgmma_m64n64t<0>(d, da, db, scale_d);
   }
 }
 
@@ -812,17 +915,481 @@ __global__ void __launch_bounds__(kThreads, 1)
   run<kResB>(g, blockIdx.x, gridDim.x, smem);
 }
 
-// The backward pair in one launch: CTAs [0, ctas1) walk dX's units, the
-// rest dW's — the Hopper form of the Pallas kernel's two-phase grid.
-template <class G1, class G2>
-__global__ void __launch_bounds__(kThreads, 1)
-    pair_kernel(const __grid_constant__ G1 g1, const __grid_constant__ G2 g2,
-                int ctas1) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  if ((int)blockIdx.x < ctas1) {
-    run<false>(g1, blockIdx.x, ctas1, smem);
+// The backward pair, staged (mx_pair_stage, then mx_gemm_bwd_pair). Each
+// operand value is converted once for each axis it is quantized along, by
+// pair_stage_kernel, into bf16 operands that keep their source's row
+// layout, so no conversion writes across rows:
+//   gn [M][Np] = q_N(g) and wn [K][Np] = q_N(w) — dX's lhs and rhs,
+//       K-major (the contraction N along a row, zero-padded to Np);
+//   xt [Mp][Kq] = q_M(x) and gt [Mp][Nq] = q_M(g) — dW's lhs and rhs,
+//       MN-major (the contraction M down the rows, zero rows from M to Mp;
+//       Kq, Nq: K, N rounded up to 8, 16-byte rows).
+// Then pair_kernel runs two pure bf16 GEMMs with no conversion in their
+// mainloop (run_staged): dX = gn · wn^T with both operands K-major, dW =
+// xt^T · gt with both MN-major (wgmma reads them transposed). The bf16
+// values are those the fused kernel's converters write, so the pair stays
+// bit for bit fused(g, w^T) and fused(x^T, g).
+
+// One source of the stage: src [R, C] fp32, row-major. dst_c [R][cp] takes
+// the 16-blocks along C (each row's; cp = C rounded up to 16, zero-filled),
+// dst_r [rp][cq] those along R (each column's, in place: rp = R rounded
+// up to 16, zero rows past R; cq >= C the row pitch); either may be null.
+// A CTA takes a tile of 8192 values, tr = 8192 / tc rows by tc columns (tc
+// the power of two from 16 to 256 that covers C, or 256): it reads the
+// tile into shared memory (a warp on up to 512 contiguous bytes of a row),
+// then converts it along each axis it needs from there — along C, 512
+// (row, block) units, two a thread, a warp on 32 rows of one block (row
+// pitch tc + 4 floats: conflict-free 16-byte reads); along R, 256 (column
+// pair, row block) units, one a thread, a warp on neighbouring columns,
+// writing a 4-byte word of each row (a warp's store is one contiguous span
+// of a row).
+struct StageJob {
+  const float* src;
+  __nv_bfloat16* dst_c;
+  __nv_bfloat16* dst_r;
+  int R, C, cp, rp, cq;
+  int lt;  // log2 of the tile's columns tc
+  int tiles_c, blocks;
+};
+
+struct Stage {
+  StageJob job[3];  // g (both axes), w (along N), x (along M)
+  int mb;
+};
+
+constexpr int kStageThreads = 256;
+constexpr int kStageTile = 8192;  // values of a stage tile
+constexpr int kStageTCMax = 256;  // its widest rows
+
+// Quantize-dequantize one 16-block given as raw fp32 bits: its 16 bf16
+// values (the high halves of the fp32 patterns, exact) packed two a word —
+// the arithmetic of F32Op::convert and store_bf16.
+__device__ __forceinline__ void stage_block(const uint32_t (&bits)[mx::kBlock],
+                                            int mb, uint32_t (&w)[8]) {
+  float q[mx::kBlock], v[mx::kBlock];
+  int e;
+  uint32_t packed;
+  mx::quantize_block_f(bits, mb, q, e, packed);
+  mx::dequantize_block_f(q, e, packed, mb, v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w[i] = __byte_perm(__float_as_uint(v[2 * i]),
+                       __float_as_uint(v[2 * i + 1]), 0x7632);
+  }
+}
+
+// How a stage tile is read: 16-byte loads of each row where rows are
+// 16-byte aligned (kRows); where the tile spans whole rows (C <= tc) that
+// are not, 16-byte loads of the tile's one contiguous span, each value put
+// at (f / C, f % C) of the tile (kSpan: the stem's x, 588-byte rows); else
+// 4-byte loads (kWords). Each is compiled apart (in one body the compiler
+// issued the row path's loads one at a time: 0.29 against 0.19 ms at
+// layer1 on an H100) and runs three CTAs an SM.
+enum StageLoad { kRows, kSpan, kWords };
+
+StageLoad stage_load(const float* src, int C, int tc) {
+  if ((C & 3) == 0 && ((uintptr_t)src & 15) == 0) return kRows;
+  // a span starts at row r0 * C, r0 a multiple of tr >= 32
+  if (C <= tc && C >= 4 && ((uintptr_t)src & 15) == 0) return kSpan;
+  return kWords;
+}
+
+template <int kLoad>
+__global__ void __launch_bounds__(kStageThreads, 3)
+    pair_stage_kernel(const __grid_constant__ Stage st) {
+  // tr rows of tc + 4 floats: at most 512 x 20 (tc = 16)
+  __shared__ __align__(16) float tile[kStageTile + 4 * kStageTile / 16];
+  int b = blockIdx.x, j = 0;
+  while (j < 2 && b >= st.job[j].blocks) b -= st.job[j++].blocks;
+  const StageJob& jb = st.job[j];
+  const int lt = jb.lt, tc = 1 << lt, tr = kStageTile >> lt;
+  const int pitch = tc + 4;
+  const int ti_r = b / jb.tiles_c;
+  const int r0 = ti_r * tr, c0 = (b - ti_r * jb.tiles_c) * tc;
+  const int t = threadIdx.x;
+  constexpr int kV = kStageTile / 4 / kStageThreads;  // float4 a thread
+  // The tile, zero past R and C.
+  // Every load of a thread is issued before the first store to shared
+  // memory (the compiler does not hoist them past the stores itself).
+  if constexpr (kLoad == kRows) {
+    float4 f[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int q = t + kStageThreads * i;
+      const int r = q >> (lt - 2), c = (q & (tc / 4 - 1)) << 2;
+      const bool ok = r0 + r < jb.R && c0 + c < jb.C;
+      f[i] = ok ? __ldg(reinterpret_cast<const float4*>(
+                      jb.src + (long long)(r0 + r) * jb.C + c0 + c))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int q = t + kStageThreads * i;
+      const int r = q >> (lt - 2), c = (q & (tc / 4 - 1)) << 2;
+      *reinterpret_cast<float4*>(tile + r * pitch + c) = f[i];
+    }
+  } else if constexpr (kLoad == kSpan) {
+    const float* span = jb.src + (long long)r0 * jb.C;
+    const int count = min(tr, jb.R - r0) * jb.C;
+    float4 f[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int e = 4 * (t + kStageThreads * i);
+      f[i] = e + 4 <= count
+                 ? __ldg(reinterpret_cast<const float4*>(span + e))
+                 : make_float4(e < count ? __ldg(span + e) : 0.f,
+                               e + 1 < count ? __ldg(span + e + 1) : 0.f,
+                               e + 2 < count ? __ldg(span + e + 2) : 0.f,
+                               0.f);
+    }
+    for (int i = t; i < kStageTile / 4; i += kStageThreads) {
+      *reinterpret_cast<float4*>(tile + 4 * i + (4 * i / tc) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();  // the tile is zero before the span lands in it
+    // element e = 4 t + 1024 i of the span: row r, column c, walked
+    int r = 4 * t / jb.C, c = 4 * t - r * jb.C;
+    const int dr = 4 * kStageThreads / jb.C;
+    const int dc = 4 * kStageThreads - dr * jb.C;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int e = 4 * (t + kStageThreads * i);
+      const float v[4] = {f[i].x, f[i].y, f[i].z, f[i].w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ck = c + k, wrap = ck >= jb.C;
+        if (e + k < count) tile[(r + wrap) * pitch + ck - wrap * jb.C] = v[k];
+      }
+      r += dr;
+      c += dc;
+      if (c >= jb.C) {
+        c -= jb.C;
+        ++r;
+      }
+    }
   } else {
-    run<false>(g2, blockIdx.x - ctas1, gridDim.x - ctas1, smem);
+#pragma unroll
+    for (int h = 0; h < kStageTile / kStageThreads; h += 8) {
+      float f[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = t + kStageThreads * (h + i);
+        const int r = q >> lt, c = q & (tc - 1);
+        f[i] = r0 + r < jb.R && c0 + c < jb.C
+                   ? __ldg(jb.src + (long long)(r0 + r) * jb.C + c0 + c)
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = t + kStageThreads * (h + i);
+        tile[(q >> lt) * pitch + (q & (tc - 1))] = f[i];
+      }
+    }
+  }
+  __syncthreads();
+  uint32_t bits[mx::kBlock], w[8];
+  if (jb.dst_c != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kStageTile / mx::kBlock / kStageThreads; ++i) {
+      const int v = t + kStageThreads * i;
+      const int r = v & (tr - 1), c = mx::kBlock * (v >> (13 - lt));
+      if (r0 + r < jb.R && c0 + c < jb.cp) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 f =
+              *reinterpret_cast<const float4*>(tile + r * pitch + c + 4 * q);
+          bits[4 * q] = __float_as_uint(f.x);
+          bits[4 * q + 1] = __float_as_uint(f.y);
+          bits[4 * q + 2] = __float_as_uint(f.z);
+          bits[4 * q + 3] = __float_as_uint(f.w);
+        }
+        stage_block(bits, st.mb, w);
+        uint4* p = reinterpret_cast<uint4*>(
+            jb.dst_c + (long long)(r0 + r) * jb.cp + c0 + c);
+        p[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        p[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+    }
+  }
+  if (jb.dst_r != nullptr) {
+    const int c = 2 * (t & (tc / 2 - 1)), rb = mx::kBlock * (t >> (lt - 1));
+    if (c0 + c < jb.C && r0 + rb < jb.rp) {
+      uint32_t hi[mx::kBlock], wh[8];
+#pragma unroll
+      for (int e = 0; e < mx::kBlock; ++e) {
+        const float2 f =
+            *reinterpret_cast<const float2*>(tile + (rb + e) * pitch + c);
+        bits[e] = __float_as_uint(f.x);
+        hi[e] = __float_as_uint(f.y);
+      }
+      stage_block(bits, st.mb, w);
+      stage_block(hi, st.mb, wh);
+      const int words = jb.cq / 2;  // a row of dst_r
+      uint32_t* out = reinterpret_cast<uint32_t*>(
+          jb.dst_r + (long long)(r0 + rb) * jb.cq + c0 + c);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        // rows 2e and 2e + 1: the low and the high halves of w[e], wh[e]
+        out[(2 * e) * words] = __byte_perm(w[e], wh[e], 0x5410);
+        out[(2 * e + 1) * words] = __byte_perm(w[e], wh[e], 0x7632);
+      }
+    }
+  }
+}
+
+// One staged GEMM: C [M, N] (row-major, ld N) = A · B over a contraction
+// of kp (a multiple of 16), split as Gemm is and its units walked in the
+// same order. K-major (kMN = 0): A [M][kp], B [N][kp], one TMA box of 64
+// contraction values by 128 (A) or BN (B) rows a slab. MN-major (kMN =
+// 1): A [kp][M], B [kp][N], boxes of 64 M or N values by 64 contraction
+// rows, two for A's 128 rows and BN / 64 for B's columns. Every box is
+// 128-byte swizzled and zero-filled past the edges.
+template <int BN, int kMN>
+struct Staged {
+  CUtensorMap ta, tb;
+  float* c;
+  float* ws;
+  int M, N, kp;
+  int split, chunk;
+  int tiles_n, tiles, units;
+};
+
+// Threads of pair_kernel: two consumer warpgroups, each 64 rows x BN of
+// the 128 x BN tile, and one producer warp whose lane 0 issues the TMA
+// copies.
+constexpr int kConsumers = 256;
+constexpr int kPairThreads = kConsumers + 32;
+
+// Shared memory of a staged GEMM: kStages stages, each the A slab (128 x
+// 64 bf16) and the B slab (BN x 64), 1024-byte aligned; each consumer
+// warpgroup's output block [64][BN + 8] (fp32; the pad puts a half warp's
+// fragment writes on 32 banks); a full and an empty mbarrier a stage.
+template <int BN>
+struct StagedLayout {
+  static constexpr int kA = kBM * kBK * 2;
+  static constexpr int kStage = kA + BN * kBK * 2;
+  static constexpr int kPitch = BN + 8;  // floats a row of an output block
+  static constexpr int kOut = 2 * 64 * kPitch * 4;
+  static constexpr int kFit = (kSmemMax - 1024 - 256 - kOut) / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kBytes = kStages * kStage + kOut + 16 * kStages + 1024;
+  static_assert(kStage % 1024 == 0, "stages 1024-byte aligned");
+  static_assert(kStages >= 2, "a slab in flight while one is multiplied");
+};
+
+template <int BN, int kT>
+__device__ __forceinline__ void wgmma_staged(float (&d)[BN / 2], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64t<kT>(d, da, db, scale_d);
+  } else if constexpr (BN == 128) {
+    wgmma_m64n128t<kT>(d, da, db, scale_d);
+  } else {
+    static_assert(BN == 152, "a staged tile is 64, 128 or 152 wide");
+    wgmma_m64n152t<kT>(d, da, db, scale_d);
+  }
+}
+
+// Barrier `id` (1 + a consumer warpgroup) over that warpgroup's 128
+// threads.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// A consumer warpgroup's accumulators for a 64 x BN block of C at rows
+// r0 + ..., columns c0 + ... into out [M, N], through its output block in
+// shared memory: fragment layout in (store_tile's), rows out, 16 bytes a
+// thread where the rows are 16-byte aligned. Where the tile spans every
+// column (N <= BN), its rows are one contiguous span, stored as such, 16
+// bytes a thread, whatever the alignment of a row (the stem's dX: 588-byte
+// rows).
+template <int BN>
+__device__ __forceinline__ void store_rows(const float (&total)[BN / 2],
+                                           float* blk, float* out, int M,
+                                           int N, int r0, int c0, int id) {
+  constexpr int P = StagedLayout<BN>::kPitch;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int row0 = 16 * (t / 32) + lane / 4;
+  warpgroup_sync(id);  // the block's last rows are out
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(blk + (row0 + 8 * h) * P + 8 * j +
+                                 2 * (lane % 4)) =
+          make_float2(total[4 * j + 2 * h], total[4 * j + 2 * h + 1]);
+    }
+  }
+  warpgroup_sync(id);
+  const int rows = min(64, M - r0), cols = min(BN, N - c0);
+  float* base = out + (long long)r0 * N + c0;
+  if (N <= BN && N >= 4 && ((uintptr_t)base & 15) == 0) {
+    // Element f of the span is (f / N, f % N) of the block; a thread's
+    // elements f = 4 t + 512 i are walked without a division a step.
+    const int count = rows * N;
+    int r = 4 * t / N, c = 4 * t - r * N;
+    const int dr = 512 / N, dc = 512 - dr * N;
+    for (int f = 4 * t; f < count; f += 4 * 128) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ce = c + e, wrap = ce >= N;
+        v[e] = f + e < count ? blk[(r + wrap) * P + ce - wrap * N] : 0.0f;
+      }
+      if (f + 4 <= count) {
+        *reinterpret_cast<float4*>(base + f) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (f + e < count) base[f + e] = v[e];
+        }
+      }
+      r += dr;
+      c += dc;
+      if (c >= N) {
+        c -= N;
+        ++r;
+      }
+    }
+  } else if ((N & 3) == 0) {
+    for (int i = t; i < 64 * (BN / 4); i += 128) {
+      const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
+      if (r < rows && c < cols) {
+        *reinterpret_cast<float4*>(base + (long long)r * N + c) =
+            *reinterpret_cast<const float4*>(blk + r * P + c);
+      }
+    }
+  } else {
+    for (int i = t; i < 64 * BN; i += 128) {
+      const int r = i / BN, c = i % BN;
+      if (r < rows && c < cols) base[(long long)r * N + c] = blk[r * P + c];
+    }
+  }
+}
+
+// The units first, first + stride, ... of one staged GEMM on one CTA. The
+// producer runs kStages slabs ahead of the consumers; a consumer
+// warpgroup issues a slab's k16 wgmmas (from zero), waits on them, frees
+// the stage and promotes the slab's sum into its fp32 total, as run does,
+// so every output element sees the same sequence of operations.
+template <int BN, int kMN>
+__device__ __forceinline__ void run_staged(const Staged<BN, kMN>& g,
+                                           int first, int stride,
+                                           uint8_t* smem_raw) {
+  using L = StagedLayout<BN>;
+  constexpr int S = L::kStages;
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* blocks = reinterpret_cast<float*>(smem + S * L::kStage);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + S * L::kStage + L::kOut);
+  uint64_t* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x != kConsumers) return;
+    for (int unit = first; unit < g.units; unit += stride) {
+      const int s = unit / g.tiles, tile = unit - s * g.tiles;
+      const int tm = tile / g.tiles_n;
+      const int m0 = tm * kBM, n0 = (tile - tm * g.tiles_n) * BN;
+      const int hi = min(g.kp, (s + 1) * g.chunk);
+      for (int k0 = s * g.chunk; k0 < hi; k0 += kBK) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* st = smem + stage * L::kStage;
+        mbar_expect_tx(&full[stage], L::kStage);
+        if constexpr (kMN) {
+#pragma unroll
+          for (int h = 0; h < kBM / 64; ++h) {
+            tma_load_2d(st + h * 8192, &g.ta, m0 + 64 * h, k0, &full[stage]);
+          }
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h) {
+            tma_load_2d(st + L::kA + h * 8192, &g.tb, n0 + 64 * h, k0,
+                        &full[stage]);
+          }
+        } else {
+          tma_load_2d(st, &g.ta, k0, m0, &full[stage]);
+          tma_load_2d(st + L::kA, &g.tb, k0, n0, &full[stage]);
+        }
+        advance();
+      }
+    }
+    return;
+  }
+  const int wg = threadIdx.x / 128;
+  float acc[BN / 2], total[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = total[i] = 0.0f;
+  for (int unit = first; unit < g.units; unit += stride) {
+    const int s = unit / g.tiles, tile = unit - s * g.tiles;
+    const int tm = tile / g.tiles_n;
+    const int m0 = tm * kBM, n0 = (tile - tm * g.tiles_n) * BN;
+    const int hi = min(g.kp, (s + 1) * g.chunk);
+    for (int k0 = s * g.chunk; k0 < hi; k0 += kBK) {
+      const int nk = min(kKB, (hi - k0) / mx::kBlock);
+      mbar_wait(&full[stage], phase);
+      const uint8_t* st = smem + stage * L::kStage;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKB; ++kk) {
+        if (kk < nk) {
+          if constexpr (kMN) {
+            wgmma_staged<BN, 1>(
+                acc, desc_sw128(st + wg * 8192 + 2048 * kk, 8192),
+                desc_sw128(st + L::kA + 2048 * kk, 8192), kk > 0);
+          } else {
+            wgmma_staged<BN, 0>(
+                acc, desc_sw128(st + wg * (L::kA / 2) + 32 * kk),
+                desc_sw128(st + L::kA + 32 * kk), kk > 0);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (threadIdx.x % 32 == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) total[i] += acc[i];
+      advance();
+    }
+    float* out = g.split > 1 ? g.ws + (long long)s * g.M * g.N : g.c;
+    store_rows<BN>(total, blocks + wg * 64 * L::kPitch, out, g.M, g.N,
+                   m0 + 64 * wg, n0, 1 + wg);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) total[i] = 0.0f;
+  }
+}
+
+// Both staged GEMMs of the pair in one launch: ctas1 CTAs walk dX's units
+// (K-major), ctas2 dW's (MN-major) — the Hopper form of the Pallas
+// kernel's two-phase grid; dX's CTAs come first unless dw_first.
+template <int BN1, int BN2>
+__global__ void __launch_bounds__(kPairThreads, 1)
+    pair_kernel(const __grid_constant__ Staged<BN1, 0> g1,
+                const __grid_constant__ Staged<BN2, 1> g2, int ctas1,
+                int ctas2, int dw_first) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int b = blockIdx.x;
+  const int i1 = dw_first ? b - ctas2 : b;  // this CTA's place among dX's
+  if (i1 >= 0 && i1 < ctas1) {
+    run_staged(g1, i1, ctas1, smem);
+  } else {
+    run_staged(g2, dw_first ? b : b - ctas1, ctas2, smem);
   }
 }
 
@@ -1008,8 +1575,8 @@ Gemm<BN, A, B> make_gemm(A a, B b, void* c, int M, int N, int kp, int split,
                         tiles,  tiles * split};
 }
 
-template <int BN, class A, class B>
-void launch_reduce(const Gemm<BN, A, B>& g, cudaStream_t stream) {
+template <class G>
+void launch_reduce(const G& g, cudaStream_t stream) {
   if (g.split == 1 || g.units == 0) return;
   const long long mn = (long long)g.M * g.N;
   const int threads = 256;
@@ -1019,8 +1586,8 @@ void launch_reduce(const Gemm<BN, A, B>& g, cudaStream_t stream) {
 }
 
 // An empty contraction (Kp = 0) is a zero output.
-template <int BN, class A, class B>
-bool empty(const Gemm<BN, A, B>& g, cudaStream_t s) {
+template <class G>
+bool empty(const G& g, cudaStream_t s) {
   if (g.units > 0 && g.kp == 0) {
     cudaMemsetAsync(g.c, 0, sizeof(float) * g.M * g.N, s);
   }
@@ -1049,26 +1616,6 @@ int launch(const Gemm<BN, A, B>& g, void* stream) {
       go(std::false_type{});
     }
     launch_reduce(g, s);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int BN1, class A1, class B1, int BN2, class A2, class B2>
-int launch_pair(const Gemm<BN1, A1, B1>& g1, const Gemm<BN2, A2, B2>& g2,
-                cudaStream_t s) {
-  const bool skip1 = empty(g1, s), skip2 = empty(g2, s);
-  const int ctas1 = skip1 ? 0 : min(g1.units, sm_count());
-  const int ctas2 = skip2 ? 0 : min(g2.units, sm_count());
-  if (ctas1 + ctas2 > 0) {
-    constexpr int b1 = Layout<BN1, A1, B1>::kBytes;
-    constexpr int b2 = Layout<BN2, A2, B2>::kBytes;
-    constexpr int bytes = b1 > b2 ? b1 : b2;
-    auto kernel = pair_kernel<Gemm<BN1, A1, B1>, Gemm<BN2, A2, B2>>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-    kernel<<<ctas1 + ctas2, kThreads, bytes, s>>>(g1, g2, ctas1);
-    if (!skip1) launch_reduce(g1, s);
-    if (!skip2) launch_reduce(g2, s);
   }
   return (int)cudaGetLastError();
 }
@@ -1122,6 +1669,81 @@ F32Op<X> f32_op(const void* p, long long sx, long long sk, int ext_x,
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
   }
   return op;
+}
+
+// A staged GEMM over bf16 operands: K-major (kMN = 0) a [M][kp] and b
+// [N][kp]; MN-major (kMN = 1) a [kp][pitch_a] and b [kp][pitch_b], valid
+// for M and N columns. The maps' boxes are those Staged describes, 128-byte
+// swizzled, zero-filled past the edges. False where a map cannot be
+// encoded (the launch is then refused, never replaced).
+template <int BN, int kMN>
+bool make_staged(Staged<BN, kMN>& g, const void* a, int pitch_a,
+                 const void* b, int pitch_b, void* c, int M, int N, int kp,
+                 int split, int chunk, void* ws) {
+  g.c = (float*)c;
+  g.ws = (float*)ws;
+  g.M = M;
+  g.N = N;
+  g.kp = kp;
+  g.split = split;
+  g.chunk = chunk;
+  g.tiles_n = (N + BN - 1) / BN;
+  g.tiles = (M + kBM - 1) / kBM * g.tiles_n;
+  g.units = g.tiles * split;
+  if (g.units == 0 || kp == 0) return true;  // nothing to load
+  auto encode = tensor_map_encoder();
+  // inner x outer elements, rows `pitch` elements apart; boxes bi x bo
+  auto map = [&](CUtensorMap* m, const void* p, int inner, int outer,
+                 int pitch, int bi, int bo) {
+    const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+    const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
+    const cuuint32_t box[2] = {(cuuint32_t)bi, (cuuint32_t)bo};
+    const cuuint32_t unit[2] = {1, 1};
+    return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(p), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  if (encode == nullptr) return false;
+  if constexpr (kMN) {
+    return map(&g.ta, a, M, kp, pitch_a, 64, kBK) &&
+           map(&g.tb, b, N, kp, pitch_b, 64, kBK);
+  }
+  return map(&g.ta, a, kp, M, kp, kBK, kBM) &&
+         map(&g.tb, b, kp, N, kp, kBK, BN);
+}
+
+// Bytes one unit of a staged GEMM moves: its slabs and its output tile.
+template <class G>
+long long unit_bytes(const G& g, int bn) {
+  const long long slabs = (min(g.chunk, g.kp) + kBK - 1) / kBK;
+  return slabs * (kBM + bn) * kBK * 2 + (long long)kBM * bn * 4;
+}
+
+template <int BN1, int BN2>
+int launch_pair(const Staged<BN1, 0>& g1, const Staged<BN2, 1>& g2,
+                cudaStream_t s) {
+  const bool skip1 = empty(g1, s), skip2 = empty(g2, s);
+  const int ctas1 = skip1 ? 0 : min(g1.units, sm_count());
+  const int ctas2 = skip2 ? 0 : min(g2.units, sm_count());
+  if (ctas1 + ctas2 > 0) {
+    constexpr int b1 = StagedLayout<BN1>::kBytes;
+    constexpr int b2 = StagedLayout<BN2>::kBytes;
+    constexpr int bytes = b1 > b2 ? b1 : b2;
+    auto kernel = pair_kernel<BN1, BN2>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    // The GEMM of the longer units first: its CTAs take the SMs at the
+    // start, the other's fill them as they free.
+    const bool dw_first = !skip1 && !skip2 &&
+                          unit_bytes(g2, BN2) > unit_bytes(g1, BN1);
+    kernel<<<ctas1 + ctas2, kPairThreads, bytes, s>>>(g1, g2, ctas1, ctas2,
+                                                      dw_first);
+    if (!skip1) launch_reduce(g1, s);
+    if (!skip2) launch_reduce(g2, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 using LhsF32 = F32Op<kBM>;
@@ -1213,35 +1835,89 @@ extern "C" int mx_gemm_prequant(const void* a, long long sam, long long sak,
                 stream);
 }
 
-// Backward pair of y = x @ w: g [M, N], x [M, K], w [K, N], row-major.
-//   dx [M, K] = q(g) @ q(w^T): g read as an lhs, quantized along N; w^T
-//       read through strides as an rhs, quantized along N.
-//   dw [K, N] = q(x^T) @ q(g): x^T read through strides as an lhs,
-//       quantized along M; g read as an rhs, quantized in 16-row slabs
-//       along M — the same cotangent quantized a second time, along the
-//       other axis, as the Pallas kernel does.
-// One launch covers the units of both; a reduce launch follows for each
-// GEMM whose split is above 1.
-extern "C" int mx_gemm_bwd_pair(const void* g, const void* x, const void* w,
-                                int mb, void* dx, void* dw, int M, int N,
-                                int K, int split_dx, int chunk_dx,
-                                void* ws_dx, int split_dw, int chunk_dw,
-                                void* ws_dw, void* stream) {
-  const LhsF32 g_lhs = f32_op<kBM>(g, N, 1, M, N, mb);
-  const LhsF32 xt_lhs = f32_op<kBM>(x, 1, K, K, M, mb);
-  const int np = (N + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
-  const int mp = (M + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
+// Backward pair of y = x @ w: g [M, N], x [M, K], w [K, N], row-major,
+// in two calls. mx_pair_stage converts each operand once for each axis it
+// is quantized along, into bf16 operands in their source's row layout
+// (the wrapper allocates them; Np, Mp: N, M rounded up to 16; Nq, Kq: N,
+// K rounded up to 8):
+//   gn [M][Np] = q_N(g), wn [K][Np] = q_N(w) — dX's lhs and rhs;
+//   xt [Mp][Kq] = q_M(x), gt [Mp][Nq] = q_M(g) — dW's lhs and rhs: the
+//       same cotangent quantized a second time, along the other axis, as
+//       the Pallas kernel does.
+// mx_gemm_bwd_pair then computes, in one launch,
+//   dx [M, K] = gn · wn^T (contracted over N) and dw [K, N] = xt^T · gt
+//   (over M),
+// and a reduce launch follows for each GEMM whose split is above 1.
+extern "C" int mx_pair_stage(const void* g, const void* x, const void* w,
+                             int mb, void* gn, void* wn, void* xt, void* gt,
+                             int M, int N, int K, void* stream) {
+  Stage st{};
+  st.mb = mb;
+  auto round = [](int n, int to) { return (n + to - 1) / to * to; };
+  auto job = [&](StageJob& jb, const void* src, int R, int C, void* dst_c,
+                 void* dst_r) {
+    jb.src = (const float*)src;
+    jb.dst_c = (__nv_bfloat16*)dst_c;
+    jb.dst_r = (__nv_bfloat16*)dst_r;
+    jb.R = R;
+    jb.C = C;
+    jb.cp = round(C, mx::kBlock);
+    jb.rp = round(R, mx::kBlock);
+    jb.cq = round(C, 8);
+    jb.lt = 4;
+    while ((1 << jb.lt) < C && (1 << jb.lt) < kStageTCMax) ++jb.lt;
+    const int tc = 1 << jb.lt, tr = kStageTile / tc;
+    jb.tiles_c = (C + tc - 1) / tc;
+    jb.blocks = (R + tr - 1) / tr * jb.tiles_c;
+  };
+  job(st.job[0], g, M, N, gn, gt);
+  job(st.job[1], w, K, N, wn, nullptr);
+  job(st.job[2], x, M, K, nullptr, xt);
+  // One launch for each way of reading that the jobs take (one, except
+  // at the stem), each over its own jobs.
+  for (StageLoad mode : {kRows, kSpan, kWords}) {
+    Stage part = st;
+    long long blocks = 0;
+    for (StageJob& jb : part.job) {
+      if (stage_load(jb.src, jb.C, 1 << jb.lt) != mode) jb.blocks = 0;
+      blocks += jb.blocks;
+    }
+    if (blocks == 0) continue;
+    auto kernel = mode == kRows   ? pair_stage_kernel<kRows>
+                  : mode == kSpan ? pair_stage_kernel<kSpan>
+                                  : pair_stage_kernel<kWords>;
+    kernel<<<(unsigned)blocks, kStageThreads, 0, (cudaStream_t)stream>>>(
+        part);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mx_gemm_bwd_pair(const void* gn, const void* wn,
+                                const void* xt, const void* gt, void* dx,
+                                void* dw, int M, int N, int K, int split_dx,
+                                int chunk_dx, void* ws_dx, int split_dw,
+                                int chunk_dw, void* ws_dw, void* stream) {
+  auto round = [](int n, int to) { return (n + to - 1) / to * to; };
+  const int np = round(N, mx::kBlock), mp = round(M, mx::kBlock);
   cudaStream_t s = (cudaStream_t)stream;
   auto go = [&](auto bn1, auto bn2) {
     constexpr int BN1 = decltype(bn1)::value, BN2 = decltype(bn2)::value;
-    auto g1 = make_gemm<BN1>(g_lhs, f32_op<BN1>(w, N, 1, K, N, mb), dx, M, K,
-                             np, split_dx, chunk_dx, ws_dx);
-    auto g2 = make_gemm<BN2>(xt_lhs, f32_op<BN2>(g, 1, N, N, M, mb), dw, K,
-                             N, mp, split_dw, chunk_dw, ws_dw);
+    Staged<BN1, 0> g1{};
+    Staged<BN2, 1> g2{};
+    if (!make_staged(g1, gn, np, wn, np, dx, M, K, np, split_dx, chunk_dx,
+                     ws_dx) ||
+        !make_staged(g2, xt, round(K, 8), gt, round(N, 8), dw, K, N, mp,
+                     split_dw, chunk_dw, ws_dw)) {
+      return (int)cudaErrorInvalidValue;
+    }
     return launch_pair(g1, g2, s);
   };
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
+  using I152 = std::integral_constant<int, 152>;
+  // With a narrow N, dX's tile spans its K columns up to 152 (the stem's
+  // 147: one tile column, whose rows are one contiguous span of dx).
   if (narrow(K)) return narrow(N) ? go(I64{}, I64{}) : go(I64{}, I128{});
-  return narrow(N) ? go(I128{}, I64{}) : go(I128{}, I128{});
+  if (!narrow(N)) return go(I128{}, I128{});
+  return K > 128 && K <= 152 ? go(I152{}, I64{}) : go(I128{}, I64{});
 }

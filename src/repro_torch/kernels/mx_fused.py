@@ -7,7 +7,11 @@
   ``mx_dense`` forward.
 * ``mx_matmul_bwd_pair_cuda`` replaces ``mx_fused.py::mx_matmul_bwd_pair``
   (``_bwd_pair_kernel``): ``dX = q(g) @ q(W^T)`` and ``dW = q(X^T) @ q(g)``
-  in one launch — the ``mx_dense`` backward.
+  — the ``mx_dense`` backward. A stage launch (``pair_stage_cuda``)
+  converts each operand once for each axis it is quantized along, into
+  bf16 operands laid out for the GEMM (``pair_stage_shapes``; a dequantized
+  MX value is exact in bf16), and one launch (``pair_gemm_cuda``) runs both
+  GEMMs on them.
 * ``mx_matmul_prequant_cuda`` replaces ``mx_fused.py::mx_matmul_prequant``
   (``_prequant_kernel``): the activation quantized in-tile, a resident
   rhs-layout weight only dequantized — ``mx_dense_prequant``.
@@ -21,7 +25,8 @@ so a transposed view costs no copy. K need not be a multiple of 16: the
 kernels zero-pad it themselves, with blocks aligned from k = 0. Every
 launch takes its GEMM's split of the contraction (``fused_plan``,
 ``pair_plans``: ``mx_matmul.gemm_split_plan`` of the GEMM's shape), with
-the fp32 workspace of the partials allocated here.
+the fp32 workspace of the partials allocated here, as are the pair's
+staged bf16 operands.
 
 Only a CUDA tensor reaches these wrappers (``kernels/ops.py`` routes a CPU
 tensor to the plain version); they raise on anything they do not take and
@@ -29,7 +34,7 @@ when the launch reports an error — there is no fallback.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -50,6 +55,22 @@ def pair_plans(m: int, n: int, k: int):
     [k, n] (over m) for g [m, n]: those of fused(g, w^T) and
     fused(x^T, g), so the pair equals the two fused GEMMs bitwise."""
     return fused_plan(m, k, n), fused_plan(k, n, m)
+
+
+def pair_stage_shapes(m: int, n: int, k: int):
+    """Shapes of the pair's staged bf16 operands for g [m, n], x [m, k]
+    and w [k, n], each in its source's row layout: ``gn`` = q_N(g)
+    [m, Np] and ``wn`` = q_N(w) [k, Np], dX's lhs and rhs with the
+    contraction N along a row; ``xt`` = q_M(x) [Mp, Kq] and ``gt`` = q_M(g)
+    [Mp, Nq], dW's lhs and rhs with the contraction M down the rows. Np
+    and Mp (n and m rounded up to 16, zero-padded) are the contractions
+    that ``pair_plans`` splits; Kq and Nq (k and n rounded up to 8) are row
+    pitches of 16 bytes' multiples, the columns past k and n unused."""
+    def up(v: int, to: int) -> int:
+        return -(-v // to) * to
+
+    return {"gn": (m, up(n, BLOCK)), "wn": (k, up(n, BLOCK)),
+            "xt": (up(m, BLOCK), up(k, 8)), "gt": (up(m, BLOCK), up(n, 8))}
 
 
 def _f32(t: torch.Tensor, what: str) -> torch.Tensor:
@@ -90,14 +111,12 @@ def mx_matmul_fused_cuda(a: torch.Tensor, b: torch.Tensor, precision_a: str,
     return out
 
 
-def mx_matmul_bwd_pair_cuda(g: torch.Tensor, x: torch.Tensor,
-                            w: torch.Tensor,
-                            precision: str) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """Both gradients of ``y = x @ w`` in one launch: g [M, N], x [M, K],
-    w [K, N] -> (dx [M, K], dw [K, N]) fp32. The kernel reads w^T and x^T
-    through strides of the row-major inputs (non-contiguous inputs are
-    copied to row-major first)."""
+def pair_stage_cuda(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    precision: str) -> Dict[str, torch.Tensor]:
+    """The pair's conversion stage alone: g [M, N], x [M, K], w [K, N] on
+    the card (copied to row-major fp32 where they are not) -> the four
+    bf16 operands of ``pair_stage_shapes``, each value quantized and
+    dequantized once."""
     g = _f32(g, "mx_matmul_bwd_pair_cuda g").contiguous()
     x = _f32(x, "mx_matmul_bwd_pair_cuda x").contiguous()
     w = _f32(w, "mx_matmul_bwd_pair_cuda w").contiguous()
@@ -109,17 +128,53 @@ def mx_matmul_bwd_pair_cuda(g: torch.Tensor, x: torch.Tensor,
     if x.device != g.device or w.device != g.device:
         raise ValueError("g, x and w on different devices")
     check_dims(m, n, k)
-    dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
-    dw = torch.empty((k, n), dtype=torch.float32, device=g.device)
-    plan_dx, plan_dw = pair_plans(m, n, k)
-    split_dx, _ws_dx = plan_args(m, k, plan_dx, g.device)
-    split_dw, _ws_dw = plan_args(k, n, plan_dw, g.device)
+    stage = {name: torch.empty(shape, dtype=torch.bfloat16, device=g.device)
+             for name, shape in pair_stage_shapes(m, n, k).items()}
     lib = _mq.load()
     code = _mq.launch(
-        lib.mx_gemm_bwd_pair, g.device, g.data_ptr(), x.data_ptr(),
-        w.data_ptr(), MANTISSA_BITS[precision], dx.data_ptr(), dw.data_ptr(),
-        m, n, k, *split_dx, *split_dw)
+        lib.mx_pair_stage, g.device, g.data_ptr(), x.data_ptr(),
+        w.data_ptr(), MANTISSA_BITS[precision],
+        *(stage[name].data_ptr() for name in ("gn", "wn", "xt", "gt")),
+        m, n, k)
+    _mq.check(lib, code, "mx_matmul_bwd_pair (stage)")
+    return stage
+
+
+def pair_gemm_cuda(stage: Dict[str, torch.Tensor], m: int, n: int,
+                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pair's two GEMMs alone, on staged operands: dx [M, K] = gn @
+    wn^T and dw [K, N] = xt^T @ gt, fp32, split by ``pair_plans``."""
+    dev = stage["gn"].device
+    for name, shape in pair_stage_shapes(m, n, k).items():
+        t = stage[name]
+        _mq.require(t, torch.bfloat16, f"mx_matmul_bwd_pair staged {name}")
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"staged {name}: expected {shape} on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    dx = torch.empty((m, k), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, n), dtype=torch.float32, device=dev)
+    plan_dx, plan_dw = pair_plans(m, n, k)
+    split_dx, _ws_dx = plan_args(m, k, plan_dx, dev)
+    split_dw, _ws_dw = plan_args(k, n, plan_dw, dev)
+    lib = _mq.load()
+    code = _mq.launch(
+        lib.mx_gemm_bwd_pair, dev,
+        *(stage[name].data_ptr() for name in ("gn", "wn", "xt", "gt")),
+        dx.data_ptr(), dw.data_ptr(), m, n, k, *split_dx, *split_dw)
     _mq.check(lib, code, "mx_matmul_bwd_pair")
+    return dx, dw
+
+
+def mx_matmul_bwd_pair_cuda(g: torch.Tensor, x: torch.Tensor,
+                            w: torch.Tensor,
+                            precision: str) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Both gradients of ``y = x @ w``: g [M, N], x [M, K], w [K, N] ->
+    (dx [M, K], dw [K, N]) fp32, through the conversion stage and the
+    staged GEMMs."""
+    stage = pair_stage_cuda(g, x, w, precision)
+    (m, n), k = g.shape, w.shape[0]
+    dx, dw = pair_gemm_cuda(stage, m, n, k)
     if m * k + k * n:
         _mq.count_launch("mx_matmul_bwd_pair")
     return dx, dw

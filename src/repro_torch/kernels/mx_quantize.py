@@ -144,8 +144,10 @@ _SIGNATURES = {
                       _I32, _I32, _I32, _I32, _I32, _PTR, _PTR],
     "mx_gemm_prequant": [_PTR, _I64, _I64, _I32, _PTR, _PTR, _PTR, _I32,
                          _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _PTR],
-    "mx_gemm_bwd_pair": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _I32, _I32,
-                         _I32, _I32, _I32, _PTR, _I32, _I32, _PTR, _PTR],
+    "mx_pair_stage": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _PTR, _PTR, _I32,
+                      _I32, _I32, _PTR],
+    "mx_gemm_bwd_pair": [_PTR] * 6 + [_I32] * 5 + [_PTR, _I32, _I32, _PTR,
+                                                   _PTR],
     "flash_attention_fwd": [_PTR] * 4 + [_I32] * 7 + [_I64] * 12
     + [_F32, _I32, _F32, _I32, _I32, _I32, _I32] + [_I32] * 3
     + [_PTR] * 3,

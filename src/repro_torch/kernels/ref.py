@@ -212,6 +212,29 @@ def mx_matmul_bwd_pair_ref(g1: torch.Tensor, wt: torch.Tensor,
             mx_matmul_fp_ref(xt, g2, precision, precision))
 
 
+def mx_pair_stage_ref(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                      precision: str):
+    """The backward pair's conversion stage (``csrc/mx_gemm.cu::
+    pair_stage_kernel``) in plain PyTorch: g [M, N], x [M, K], w [K, N] ->
+    the bf16 operands, each quantized and dequantized along one axis in
+    its source's row layout, the contraction zero-padded to a multiple of
+    16: ``gn`` = q_N(g) [M, Np] and ``wn`` = q_N(w) [K, Np] (along the
+    rows), ``xt`` = q_M(x) [Mp, K] and ``gt`` = q_M(g) [Mp, N] (down the
+    columns). The kernel's ``xt`` and ``gt`` have rows of a pitch rounded
+    up to 8 (``mx_fused.pair_stage_shapes``); their first K and N columns
+    are these. A dequantized MX value is exact in bf16. (The kernel keeps
+    -0 where a negative input's mantissa rounds to zero, this version +0:
+    equal values, and neither changes a sum.)"""
+    def along_rows(t: torch.Tensor) -> torch.Tensor:
+        t = torch.nn.functional.pad(t.to(torch.float32),
+                                    (0, (-t.shape[1]) % BLOCK)).contiguous()
+        return mx_quant_dequant_ref(t, precision).to(torch.bfloat16)
+
+    return {"gn": along_rows(g), "wn": along_rows(w),
+            "xt": along_rows(x.T).T.contiguous(),
+            "gt": along_rows(g.T).T.contiguous()}
+
+
 def mx_matmul_prequant_ref(a: torch.Tensor, qb: MXTensor,
                            precision_a: str) -> torch.Tensor:
     """``a [M, K]`` quantized on the fly @ a resident rhs-layout weight

@@ -8,7 +8,11 @@ contiguous and through transposed views, and with products in the fp32
 subnormal range, each held to its plain version (``kernels/ref.py``) with
 the tolerances of ``chip_smoke.py`` phases 6–7, the four kernels to the
 bitwise contracts, and each repeated to show that the fixed-order splits
-give the same bits.
+give the same bits. The backward pair (conversion stage, then staged
+GEMMs) at every phase-6 GEMM and a ragged stem, bitwise the two fused
+launches it replaces, with a wrong-axis dW that still fails the typical
+limit; and a reduced ResNet18 SGD step, run twice, bit for bit the same
+(deterministic cuDNN, set by ``device.resolve_device``).
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip without a card.
 On the card (``--noconftest``: ``tests/conftest.py`` imports JAX, which the
@@ -16,9 +20,12 @@ port's card machine does not have):
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_kernels.py
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.dacapo_pairs import RESNET18
+from repro_torch.core.estimator import vision_gemms
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mx_fused as mxf
 from repro_torch.kernels import mx_matmul as mxm
@@ -166,7 +173,9 @@ def test_split_gemms_match_plain_and_each_other(card, shape, precision):
 
 
 # g [M, N], x [M, K], w [K, N]: the pair's dW contracts over M and splits.
-PAIR_SHAPES = [(3000, 40, 24), (5000, 64, 147)]
+# The stage reads x's rows of K = 147 as one span a tile and those of
+# K = 301 (wider than a tile, not 16-byte aligned) 4 bytes a load.
+PAIR_SHAPES = [(3000, 40, 24), (5000, 64, 147), (3000, 40, 301)]
 
 
 @pytest.mark.parametrize("shape", PAIR_SHAPES, ids=str)
@@ -282,3 +291,85 @@ def test_gemm_subnormal_scales(card, k):
     prods = aq[0] * bq[8:]
     assert bool(((prods != 0) & (prods.abs() < 2.0 ** -126)).any())
     _assert_gemm_family(a, b, g, "mx9")
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+# The pair's shapes: phase 6's GEMMs (full-width ResNet18 at batch 32, each
+# (M, N, K) once), the stem's K = 147 at a ragged M (dX's 152-wide tile) and
+# a K in (128, 152] at N > 64 (dX's 128-wide tiles).
+PAIR_PHASE6 = sorted(set(vision_gemms(RESNET18, batch=32))) + [
+    (4999, 64, 147), (3000, 128, 144)]
+
+
+@pytest.mark.parametrize("shape", PAIR_PHASE6, ids=str)
+def test_pair_at_phase6_shapes_equals_two_fused(card, shape):
+    """dX and dW bitwise fused(g, w^T) and fused(x^T, g); the conversion
+    stage equal to its plain version; both outputs within both limits of
+    the plain pair."""
+    m, n, k = shape
+    x, w, g = _gemm_operands(m, n, k, card, seed=m + n + k)
+    dx, dw = mxf.mx_matmul_bwd_pair_cuda(g, x, w, "mx9")
+    stage = mxf.pair_stage_cuda(g, x, w, "mx9")
+    plain = ref.mx_pair_stage_ref(g, x, w, "mx9")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dx), _bits(mxf.mx_matmul_fused_cuda(
+        g, w.T, "mx9", "mx9")))
+    assert torch.equal(_bits(dw), _bits(mxf.mx_matmul_fused_cuda(
+        x.T, g, "mx9", "mx9")))
+    for key, t in plain.items():
+        assert torch.equal(stage[key][:, :t.shape[1]], t), key
+    del stage, plain
+    gq, wq = _qd(g, "mx9"), _qd(w, "mx9")
+    _within_limits(dx, ref._matmul_nt(gq, wq), gq, wq)
+    del gq, wq
+    xq, gq2 = _qd(x.T, "mx9"), _qd(g.T, "mx9")
+    _within_limits(dw, ref._matmul_nt(xq, gq2), xq, gq2)
+
+
+@pytest.mark.parametrize("shape", [(25088, 128, 1152), (4999, 64, 147)],
+                         ids=str)
+def test_pair_wrong_axis_dw_fails_the_typical_limit(card, shape):
+    """The control of phase 6: the pair's dW passes the typical limit of
+    the plain dW, while a dW of g quantized along N (the wrong axis) does
+    not."""
+    m, n, k = shape
+    x, w, g = _gemm_operands(m, n, k, card, seed=11)
+    _, dw = mxf.mx_matmul_bwd_pair_cuda(g, x, w, "mx9")
+    xq, gq = _qd(x.T, "mx9"), _qd(g.T, "mx9")
+    plain = ref._matmul_nt(xq, gq)
+    pad_m = (-m) % 16
+    wrong = ref._matmul_nt(xq, torch.nn.functional.pad(
+        _qd(g, "mx9")[:, :n], (0, 0, 0, pad_m)).T.contiguous())
+    _, typical = ref.gemm_error_limits(xq, gq)
+    assert bool(((dw - plain).abs() <= typical).all())
+    assert not bool(((wrong - plain).abs() <= typical).all())
+
+
+def test_reduced_resnet18_sgd_step_repeats_bitwise(card):
+    """Two SGD steps of the reduced ResNet18 from the same weights and
+    batch give the same parameters bit for bit: the convolutions' weight
+    gradients (cuDNN) are deterministic on the card."""
+    from repro_torch.core.kernel import sgd_momentum_step
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = RESNET18.reduced()
+    model = make_vision_model(cfg, card)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (32, cfg.img_size, cfg.img_size, 3)).astype(np.float32)).to(card)
+    y = torch.from_numpy(rng.integers(0, cfg.num_classes, 32)).to(card)
+    runs = []
+    for _ in range(2):
+        p, opt = params, tree_map(torch.zeros_like, params)
+        for _ in range(3):
+            p, opt, _ = sgd_momentum_step(model, p, opt, x, y, 0.05)
+        runs.append(p)
+    torch.cuda.synchronize()
+    assert torch.backends.cudnn.deterministic is True
+    for a, b in zip(tree_leaves(runs[0]), tree_leaves(runs[1])):
+        assert torch.equal(_bits(a), _bits(b))

@@ -1,6 +1,6 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
-``attention_mutants.py`` and ``gemm_ablation.py`` import neither ``jax``
-nor the JAX package, and its entry points default to the card and refuse
+``attention_mutants.py``, ``gemm_ablation.py`` and ``pair_per_gemm.py``
+import neither ``jax`` nor the JAX package, and its entry points default to the card and refuse
 to run without one."""
 import ast
 import subprocess
@@ -13,7 +13,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "attention_mutants.py",
-    ROOT / "gemm_ablation.py"]
+    ROOT / "gemm_ablation.py", ROOT / "pair_per_gemm.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -82,3 +82,18 @@ def test_fp32_precision_is_pinned():
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_cudnn_is_pinned_deterministic():
+    """resolve_device sets deterministic cuDNN without benchmarking for
+    every device it returns, whatever the process had set before."""
+    from repro_torch.device import resolve_device
+
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    try:
+        assert resolve_device("cpu") == torch.device("cpu")
+        assert torch.backends.cudnn.deterministic is True
+        assert torch.backends.cudnn.benchmark is False
+    finally:
+        resolve_device("cpu")
