@@ -16,19 +16,30 @@ exits non-zero without printing a result:
    quantized leaf shape of full-width ResNet18 and WideResNet50, an odd K
    and blocks of zeros, denormals, halves and extremes; times kernel,
    plain version and bound (bytes over 3.35 TB/s) at each leaf shape.
+   Then the grouped calls (``ops.mx_quantize_many`` /
+   ``mx_dequantize_many``, one launch per tree): the full-width trees of
+   ResNet18, WideResNet50, ViT-B/32 and ViT-B/16, a tree of odd and special
+   leaves (ragged K, K not a multiple of 4, a misaligned view, bf16, an
+   empty leaf, the blocks above) and a tree above the launch table's cap,
+   each bitwise equal to the plain versions leaf by leaf at mx4/mx6/mx9
+   with the planned launch count; each model tree's two grouped launches
+   timed beside the tree's bound.
 4. session — the port's main path: ``CLSystemSpec(RESNET18, WIDERESNET50,
    "dacapo-spatiotemporal", apply_mx=True, device="cuda")``, pretrained on
    the card, run for 45 s of virtual time over S1 — twice, each from a
    fresh build and a fresh ``np.random.default_rng(0)``, and the two runs
    must agree bit for bit (phase logs, drift events, average accuracy,
    the student's parameters, launch counts); the MX serving copies must
-   have gone through the kernels (launch counters and ``kernel_stats``),
+   have gone through the kernels, one quantize and one dequantize launch
+   per serving-copy fill (launch counters and ``kernel_stats``),
    and the student's MX6 serving tree and forward must agree with the
    port's plain CPU path.
 5. full width — InferenceKernel / LabelingKernel at the full Table III
    configs (224 px, 1000 classes, random weights), MX6 serving copies
-   filled through the kernels and checked bitwise against the plain
-   version on the card, then a 32-frame batch served by each.
+   filled through the kernels (one launch of each per fill) and checked
+   bitwise against the plain version on the card, then a 32-frame batch
+   served by each; each fill's host wall, its host part alone and its
+   device time (CUDA events) beside its bound.
 6. gemm    — the MX GEMM kernels on full-width ResNet18's 21 GEMMs at
    batch 32 (``vision_gemms``; the real weights of phase 3's tree as
    [K, N], N(0,1) activations and cotangents): MX9 training through
@@ -102,11 +113,12 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int = 15) -> float:
+def time_ms(fn, iters: int = 15, spin: int = 1_000_000) -> float:
     """Median per-call device time, L2 flushed before each call (a
-    serving-copy fill finds the weights cold). A spin kernel ahead of the
-    start event lets the host enqueue the call before the device reaches
-    it, so host-side launch overhead stays out of the time."""
+    serving-copy fill finds the weights cold). A spin kernel of ``spin``
+    cycles ahead of the start event lets the host enqueue the call before
+    the device reaches it, so host-side launch overhead stays out of the
+    time."""
     import numpy as np
     import torch
 
@@ -115,7 +127,7 @@ def time_ms(fn, iters: int = 15) -> float:
     times = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -152,6 +164,12 @@ def pass_ms(fns, reps: int = 3) -> float:
     return float(np.median(sums))
 
 
+# Spin ahead of a timed serving-copy fill: ~20 ms at the H100's clocks,
+# more than the host takes to issue a whole fill.
+FILL_SPIN = 40_000_000
+FILLS = 9  # fills whose median host wall a fill reports: the host is noisy
+
+
 def same_q(qa, qb) -> bool:
     import torch
 
@@ -165,6 +183,45 @@ def bitwise(a, b) -> bool:
 
     return torch.equal(a.contiguous().view(torch.int32),
                        b.contiguous().view(torch.int32))
+
+
+def same_bits(a, b) -> bool:
+    """Same dtype, shape and bytes (any dtype)."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def quantizable_leaves(params) -> list:
+    """The leaves a serving-copy fill quantizes, in tree order."""
+    from repro_torch.core.mx import _quantizable
+    from repro_torch.tree import tree_leaves
+
+    return [p for p in tree_leaves(params) if _quantizable(p, 1024)]
+
+
+def quantize_bytes(shapes) -> int:
+    """Bytes that one grouped quantize of leaves of these shapes (or one
+    dequantize, the other way) must move, each once: M·K fp32 values, M·Kp
+    mantissas and 2·M·Kp/16 exponent and bits bytes (K the last axis, M
+    the rest, Kp = K rounded up to 16)."""
+    import math
+
+    total = 0
+    for shape in shapes:
+        m, k = math.prod(shape[:-1]), int(shape[-1])
+        kp = -(-k // 16) * 16
+        total += 4 * m * k + m * kp + 2 * (m * kp // 16)
+    return total
+
+
+def session_fills(session) -> int:
+    """Serving-copy fills so far of the session's inference and labeling
+    kernels."""
+    return (session.inference.serving_cache.fills
+            + session.labeling.serving_cache.fills)
 
 
 def nvidia_smi_line() -> str:
@@ -182,7 +239,7 @@ def session_run(student, teacher):
     device, then 45 s of virtual time over S1 (launch counts and
     kernel_stats set to 0 just before the run). Returns the session, the
     stream, the result, the run's host wall seconds and the pretraining's,
-    and the run's launch counts and kernel_stats."""
+    the run's serving-copy fills, and its launch counts and kernel_stats."""
     import numpy as np
     import torch
 
@@ -203,13 +260,15 @@ def session_run(student, teacher):
     session.set_pretrained(tp, sp)
     torch.cuda.synchronize()
     pretrain_s = time.perf_counter() - t0
+    fills = session_fills(session)
     mxq.reset_launch_counts()
     ops.reset_kernel_stats()
     t0 = time.perf_counter()
     res = session.run(stream, duration=45.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (session, stream, res, wall, pretrain_s, mxq.launch_counts(),
+    return (session, stream, res, wall, pretrain_s,
+            session_fills(session) - fills, mxq.launch_counts(),
             ops.kernel_stats())
 
 
@@ -247,9 +306,10 @@ def session_phase(tag: str, student, teacher, path_kernels):
     card, each time from a fresh build and a fresh generator; the two runs
     must agree bit for bit (:func:`run_differences`). Every kernel of
     ``path_kernels`` must have launched in the first run and served all
-    its calls; the student's MX6 serving tree must equal the port's plain
-    CPU path bitwise, its logits within 1e-3. Returns the first run's
-    launch counts and kernel_stats."""
+    its calls, the quantize and dequantize kernels once per serving-copy
+    fill; the student's MX6 serving tree must equal the port's plain CPU
+    path bitwise, its logits within 1e-3. Returns the first run's launch
+    counts and kernel_stats."""
     import numpy as np
     import torch
 
@@ -258,19 +318,19 @@ def session_phase(tag: str, student, teacher, path_kernels):
     from repro_torch.tree import tree_leaves, tree_map
 
     runs = [session_run(student, teacher) for _ in range(2)]
-    for i, (_, _, r, wall, pre_s, counts, st) in enumerate(runs):
+    for i, (_, _, r, wall, pre_s, fills, counts, st) in enumerate(runs):
         log(tag, f"run {i + 1}: {student.name} / {teacher.name}: pretrained "
             f"teacher 25x32 + student 15x32 on the card in {pre_s:.2f} s; "
             f"phases {len(r.phase_log)}, drift events {r.drift_events}, avg "
-            f"accuracy {r.avg_accuracy!r}, wall {wall:.2f} s, launches "
-            f"{counts}, kernel_stats {st}")
+            f"accuracy {r.avg_accuracy!r}, wall {wall:.2f} s, serving-copy "
+            f"fills {fills}, launches {counts}, kernel_stats {st}")
     diffs = run_differences(*runs)
     if diffs:
         raise AssertionError(f"{tag}: two runs of the session differ: "
                              + "; ".join(diffs))
     log(tag, "the two runs agree bit for bit: phase logs, drift events, "
         "average accuracy, student parameters, launch counts")
-    session, stream, res, _, _, launches, stats = runs[0]
+    session, stream, res, _, _, fills, launches, stats = runs[0]
     del runs
     for op in path_kernels:
         served = stats.get(op, {})
@@ -278,6 +338,13 @@ def session_phase(tag: str, student, teacher, path_kernels):
             raise AssertionError(f"{op} not served by the kernel: {served}")
         if launches[op] < 1:
             raise AssertionError(f"{op} launched no time on the main path")
+    for op in ("mx_quantize", "mx_dequantize"):
+        if launches[op] != fills or stats[op] != {"cuda": fills}:
+            raise AssertionError(f"{op}: {launches[op]} launches, "
+                                 f"kernel_stats {stats[op]}, for {fills} "
+                                 "serving-copy fills: expected one a fill")
+    log(tag, f"one quantize and one dequantize launch per serving-copy fill "
+        f"({fills} fills)")
     if not res.phase_log or not np.isfinite(res.avg_accuracy):
         raise AssertionError(f"bad session result: {len(res.phase_log)} "
                              f"phases, avg accuracy {res.avg_accuracy}")
@@ -306,13 +373,19 @@ def session_phase(tag: str, student, teacher, path_kernels):
 def full_width_serve(tag: str, cfg, params, x, est, inference: bool):
     """Phases 5 and 8: the InferenceKernel (``inference``) or the
     LabelingKernel of ``cfg`` on full-width ``params``: the MX6 serving
-    copy filled through the kernels and checked bitwise against the plain
-    version on the card, finite logits for the batch ``x``, and frames/s
-    of three served batches. Returns the kernel and its serving tree."""
+    copy filled through the kernels, one quantize and one dequantize launch
+    a fill, and checked bitwise against the plain version on the card; a
+    fill's host wall and its host part alone (issuing it), medians of
+    ``FILLS`` fills, and its device time (CUDA events, behind a spin that
+    covers the host part) beside its bound;
+    finite logits for the batch ``x``, and frames/s of three served
+    batches. Returns the kernel and its serving tree."""
+    import numpy as np
     import torch
 
     from repro_torch.core.kernel import InferenceKernel, LabelingKernel
     from repro_torch.core.mx import _quantizable
+    from repro_torch.kernels import mx_quantize as mxq
     from repro_torch.kernels import ops, ref
     from repro_torch.models.registry import make_vision_model
     from repro_torch.tree import tree_leaves, tree_map
@@ -321,12 +394,30 @@ def full_width_serve(tag: str, cfg, params, x, est, inference: bool):
     cls = InferenceKernel if inference else LabelingKernel
     kern = cls(model, cfg, est, apply_mx=True, device="cuda")
     kern.serving_cache.get(params, "mx6")  # warm the allocator
-    kern.serving_cache.invalidate()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    serving = kern.serving_cache.get(params, "mx6")
-    torch.cuda.synchronize()
-    fill_ms = (time.perf_counter() - t0) * 1e3
+    walls, hosts = [], []
+    before = mxq.launch_counts()
+    for _ in range(FILLS):
+        kern.serving_cache.invalidate()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serving = kern.serving_cache.get(params, "mx6")
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    after = mxq.launch_counts()
+    per_fill = {op: (after[op] - before[op]) / FILLS for op in after
+                if after[op] != before[op]}
+    if per_fill != {"mx_quantize": 1, "mx_dequantize": 1}:
+        raise AssertionError(f"{cfg.name}: a fill launched {per_fill}")
+    fill_ms, host_ms = float(np.median(walls)), float(np.median(hosts))
+
+    def fill():
+        kern.serving_cache.invalidate()
+        kern.serving_cache.get(params, "mx6")
+
+    device_ms = time_ms(fill, spin=FILL_SPIN)
+    shapes = [tuple(p.shape) for p in quantizable_leaves(params)]
+    bound_ms = 2 * quantize_bytes(shapes) / HBM_BYTES_PER_S * 1e3
     t0 = time.perf_counter()
     plain_tree = tree_map(
         lambda p: ref.mx_quant_dequant_ref(
@@ -361,11 +452,107 @@ def full_width_serve(tag: str, cfg, params, x, est, inference: bool):
     fps = 3 * len(x) / (time.perf_counter() - t0)
     n_params = sum(p.numel() for p in tree_leaves(params))
     log(tag, f"{cfg.name} ({n_params / 1e6:.1f} M params, {cfg.img_size} "
-        "px): "
-        f"MX6 serving fill {fill_ms:.2f} ms through the kernels "
-        f"({plain_fill_ms:.2f} ms plain), bitwise equal; "
+        f"px, {len(shapes)} quantized leaves): MX6 serving fill "
+        f"{fill_ms:.4f} ms host wall (its host part {host_ms:.4f} ms; "
+        f"median of {FILLS}: walls {[round(t, 4) for t in walls]}), "
+        f"device time {device_ms:.4f} ms, bound {bound_ms:.4f} ms, launches "
+        f"{per_fill} ({plain_fill_ms:.2f} ms plain), bitwise equal; "
         f"{fps:.1f} frames/s at batch {len(x)}")
     return kern, serving
+
+
+def grouped_phase(trees, timed):
+    """Phase 3, grouped: the leaves of each tree of ``trees`` (label ->
+    leaves) through one ``ops.mx_quantize_many`` and one
+    ``ops.mx_dequantize_many`` call at mx4, mx6 and mx9, bitwise equal to
+    the plain versions leaf by leaf (the dequantized leaf in its shape and
+    dtype), with the planned launches of each kernel (one per
+    ``MAX_LEAVES`` leaves), all served by "cuda". Times the two mx6 launches
+    of each tree of ``timed`` beside the tree's bound. Returns one row per
+    tree."""
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for label, leaves in trees.items():
+        shapes = [tuple(x.shape) for x in leaves]
+        plan = mxq.plan_many(shapes)
+        want = {"mx_quantize": plan.launches, "mx_dequantize": plan.launches}
+        for prec in ("mx4", "mx6", "mx9"):
+            mxq.reset_launch_counts()
+            ops.reset_kernel_stats()
+            qs = ops.mx_quantize_many(leaves, prec)
+            ys = ops.mx_dequantize_many(qs, shapes, [x.dtype for x in leaves])
+            torch.cuda.synchronize()
+            got = {op: n for op, n in mxq.launch_counts().items() if n}
+            stats = ops.kernel_stats()
+            if got != want or stats != {op: {"cuda": n}
+                                        for op, n in want.items()}:
+                raise AssertionError(f"grouped {label} {prec}: launches "
+                                     f"{got}, kernel_stats {stats}; "
+                                     f"expected {want}")
+            for i, (x, q, y) in enumerate(zip(leaves, qs, ys)):
+                k = x.shape[-1]
+                qp = ref.mx_quantize_ref(
+                    ops._pad_last(x.reshape(-1, k), ref.BLOCK)[0], prec)
+                if not same_q(q, qp):
+                    raise AssertionError(f"mx_quantize_many {label} {prec} "
+                                         f"leaf {i} {tuple(x.shape)}: "
+                                         "kernel != plain")
+                yp = ref.mx_dequantize_ref(qp)[:, :k].reshape(x.shape)
+                if not same_bits(y, yp.to(x.dtype)):
+                    raise AssertionError(f"mx_dequantize_many {label} {prec} "
+                                         f"leaf {i} {tuple(x.shape)}: "
+                                         "kernel != plain")
+            del qs, ys
+        row = {"tree": label, "leaves": len(leaves),
+               "elements": sum(x.numel() for x in leaves),
+               "launches": plan.launches}
+        if label in timed:
+            q6 = mxq.mx_quantize_many_cuda(leaves, "mx6", plan)
+            row.update(
+                q_ms=time_ms(lambda: mxq.mx_quantize_many_cuda(
+                    leaves, "mx6", plan)),
+                dq_ms=time_ms(lambda: mxq.mx_dequantize_many_cuda(
+                    q6, shapes, plan)),
+                bound_ms=quantize_bytes(shapes) / HBM_BYTES_PER_S * 1e3)
+            del q6
+            log("kernels", "grouped mx6 {tree} ({leaves} leaves, {elements} "
+                "elements, {launches} launch each): quantize {q_ms:.4f} ms, "
+                "dequantize {dq_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                "each".format(**row))
+        rows.append(row)
+    seen = "; ".join("{tree}: {leaves} leaves, {launches} launch(es)".format(
+        **row) for row in rows)
+    log("kernels", f"grouped quantize and dequantize bitwise equal to the "
+        f"plain version leaf by leaf for mx4/mx6/mx9 over {len(trees)} trees "
+        f"({seen}; tolerance 0)")
+    return rows
+
+
+def odd_trees(gen, special, dev) -> dict:
+    """Phase 3's grouped trees beyond the models': the odd and special
+    leaves (``special``, phase 3's own odd cases, with ragged K, K not a
+    multiple of 4, a view whose fp32 rows are not 16-byte aligned, a bf16
+    leaf, an empty leaf), and a tree of ``MAX_LEAVES + 9`` small leaves:
+    two launches."""
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    odd = list(special) + [
+        randn(5, 1000), randn(7, 30), randn(3, 3, 8, 33),
+        randn(24, 96).bfloat16(), randn(64 * 48 + 1)[1:].view(64, 48),
+        torch.empty((0, 16), device=dev)]
+    shapes = ((17, 48), (3, 1000), (64, 64), (2, 30), (1, 16), (9, 8, 16))
+    capped = [randn(*shapes[i % len(shapes)])
+              for i in range(mxq.MAX_LEAVES + 9)]
+    return {"odd and special": odd, "above the cap": capped}
 
 
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -1072,7 +1259,8 @@ def main() -> None:
                          "this smoke run needs a CUDA card")
     import numpy as np
 
-    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+    from repro_torch.configs.dacapo_pairs import (RESNET18, VIT_B16, VIT_B32,
+                                                  WIDERESNET50)
     from repro_torch.core.estimator import DaCapoEstimator
     from repro_torch.core.mx import _quantizable
     from repro_torch.kernels import mx_quantize as mxq
@@ -1162,6 +1350,16 @@ def main() -> None:
     log("kernels", f"bitwise equal to the plain version for mx4/mx6/mx9 over "
         f"{len(cases)} shapes (tolerance 0); max_abs_err {max_err}")
     biggest = max(timings, key=lambda r: r["shape"][0] * r["shape"][1])
+    trees = {cfg.name: quantizable_leaves(full[cfg.name])
+             for cfg in (RESNET18, WIDERESNET50)}
+    for cfg in (VIT_B32, VIT_B16):
+        trees[cfg.name] = quantizable_leaves(
+            make_vision_model(cfg, dev).init(gen))
+    timed = tuple(trees)
+    trees.update(odd_trees(gen, [cases[(1000, 1000)], cases[
+        ("special",) + tuple(special.shape)]], dev))
+    tree_rows = grouped_phase(trees, timed)
+    del trees
 
     # ----------------------------------------------------------- 4 session
     launches, _ = session_phase("session", RESNET18, WIDERESNET50,
@@ -1208,7 +1406,12 @@ def main() -> None:
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": biggest["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "shape": biggest["shape"],
-            "precision": "mx6", "launches_full_width": full_launches[name]})
+            "precision": "mx6", "launches_full_width": full_launches[name],
+            "launches_per_fill": 1,
+            "trees": [{key: row[key] for key in (
+                "tree", "leaves", "elements", "launches", "bound_ms",
+                "q_ms" if name == "mx_quantize" else "dq_ms") if key in row}
+                for row in tree_rows]})
     kernels += gemm_rows
     main_case = attention_rows[0]
     kernels.append({

@@ -16,7 +16,9 @@
   leaves stored as actual MX representations (int8 mantissas + shared
   exponents, ~3.5× smaller than fp32); ``dequantize_tree_mx`` reproduces
   ``quantize_tree``'s output bit for bit. ``ServingParamsCache``
-  (core/kernel.py) keeps these resident.
+  (core/kernel.py) keeps these resident. A tree takes one quantize and one
+  dequantize call (``ops.mx_quantize_many`` / ``mx_dequantize_many``): on
+  the card one launch each, whatever its number of leaves.
 
 Everything goes through ``kernels.ops``: on the card the hand-written MX
 kernels, on the CPU their plain versions. A leaf is flattened to
@@ -33,7 +35,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MXTensor
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,13 +58,10 @@ def _quantizable(p, min_size: int) -> bool:
 
 def quantize_tree(params, precision: str, min_size: int = 1024):
     """Fake-quant every >=2D weight leaf of at least ``min_size`` elements
-    to ``precision`` (the retraining master copy stays fp32)."""
-    def q(p):
-        if not _quantizable(p, min_size):
-            return p
-        return ops.mx_quant_dequant(p, precision)
-
-    return tree_map(q, params)
+    to ``precision`` (the retraining master copy stays fp32): the round
+    trip through the resident form, one quantize and one dequantize launch
+    for the whole tree on the card."""
+    return dequantize_tree_mx(quantize_tree_mx(params, precision, min_size))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,30 +77,32 @@ class MXLeaf:
     k: int
 
 
-def _dequant_leaf(leaf: MXLeaf) -> torch.Tensor:
-    y = ops.mx_dequantize(leaf.q)
-    if y.shape[-1] != leaf.k:
-        y = y[:, : leaf.k]
-    return y.reshape(leaf.shape).to(leaf.dtype)
-
-
 def quantize_tree_mx(params, precision: str, min_size: int = 1024):
     """Quantize every weight leaf :func:`quantize_tree` would touch into its
-    RESIDENT MX representation (``MXLeaf``)."""
-    def q(p):
-        if not _quantizable(p, min_size):
-            return p
-        return MXLeaf(ops.mx_quantize(p, precision), tuple(p.shape), p.dtype,
-                      int(p.shape[-1]))
-
-    return tree_map(q, params)
+    RESIDENT MX representation (``MXLeaf``): one ``ops.mx_quantize_many``
+    call for all of them, so on the card one launch, each leaf's fields
+    views of arenas shared by the tree. Other leaves come back as the same
+    objects."""
+    leaves = tree_leaves(params)
+    picked = [_quantizable(p, min_size) for p in leaves]
+    qs = iter(ops.mx_quantize_many(
+        [p for p, take in zip(leaves, picked) if take], precision))
+    out = iter([MXLeaf(next(qs), tuple(p.shape), p.dtype, int(p.shape[-1]))
+                if take else p for p, take in zip(leaves, picked)])
+    return tree_map(lambda _: next(out), params)
 
 
 def dequantize_tree_mx(qtree):
     """Expand a :func:`quantize_tree_mx` tree back to the fake-quant fp32
-    serving tree — bit-identical to ``quantize_tree`` on the source."""
-    return tree_map(lambda p: _dequant_leaf(p) if isinstance(p, MXLeaf)
-                    else p, qtree, is_leaf=lambda p: isinstance(p, MXLeaf))
+    serving tree — bit-identical to ``quantize_tree`` on the source — in
+    one ``ops.mx_dequantize_many`` call (one launch on the card). An
+    ``MXLeaf``, a dataclass, is a leaf of the tree functions."""
+    leaves = tree_leaves(qtree)
+    mx = [p for p in leaves if isinstance(p, MXLeaf)]
+    ys = iter(ops.mx_dequantize_many([p.q for p in mx], [p.shape for p in mx],
+                                     [p.dtype for p in mx]))
+    out = iter([next(ys) if isinstance(p, MXLeaf) else p for p in leaves])
+    return tree_map(lambda _: next(out), qtree)
 
 
 class _MXDense(torch.autograd.Function):

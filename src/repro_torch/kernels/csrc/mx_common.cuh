@@ -12,13 +12,14 @@
 //   - powers of two are built from exponent bits (pow2), never with exp2f
 //     (on an H100 the GEMMs measured 2-6 % faster with it than with
 //     ldexpf).
-// mx_quantize_kernel stores the result of quantize_block; the GEMM kernels
-// (mx_gemm.cu) quantize and dequantize their tiles with its core
-// quantize_block_f and dequantize_block's core dequantize_block_f (the
-// mantissas kept as exact floats instead of int8), so a tile quantized
-// inside a GEMM is bit for bit what the quantize kernel stores and the
-// dequantize kernel returns. (mx_dequantize_kernel keeps its own loop,
-// with the same exact values.)
+// The GEMM kernels (mx_gemm.cu) quantize and dequantize their tiles with
+// quantize_block_f and dequantize_block_f (the mantissas kept as exact
+// floats instead of int8); the quantize and dequantize kernels
+// (mx_quantize.cu) run the same operations with a block split over four
+// lanes (quantize_quad, dequantize_quad), so a tile quantized inside a GEMM
+// is bit for bit what the quantize kernel stores and the dequantize kernel
+// returns. quantize_block / dequantize_block, the int8 forms, serve the
+// staged design that quantize_ablation.py measures beside them.
 //
 // Compile without --use_fast_math: flush-to-zero would change denormal
 // scales and products.

@@ -60,8 +60,8 @@
 //   converters — all 512 threads take (row, 16-block) units of the lhs and
 //       (column, 16-block) units of the rhs and quantize and dequantize
 //       each with mx_common.cuh's quantize_block_f / dequantize_block_f
-//       (the cores of quantize_block / dequantize_block: bit for bit what
-//       mx_quantize_kernel stores and mx_dequantize_kernel returns; MX
+//       (bit for bit what mx_quantize.cu's grouped kernels store and
+//       return, which split the same operations over four lanes; MX
 //       operands are only dequantized), writing 16 bf16 values (the high
 //       halves of the fp32 patterns, exact) into the K-major core-matrix
 //       layout wgmma reads (8 x 16-byte rows a core matrix, no swizzle) —

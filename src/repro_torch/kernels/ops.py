@@ -15,7 +15,7 @@ The path is chosen by the tensor's device, never by a setting:
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +96,51 @@ def mx_dequantize(q: MXTensor) -> torch.Tensor:
         y = _ref.mx_dequantize_ref(q)
     _count("mx_dequantize", path)
     return y
+
+
+def mx_quantize_many(leaves: Sequence[torch.Tensor],
+                     precision: str) -> List[MXTensor]:
+    """:func:`mx_quantize` of every leaf (each flattened to [-1, K], the
+    result covering K padded to 16), on the card in ONE launch for up to
+    ``mx_quantize.MAX_LEAVES`` leaves, each result a view of arenas shared
+    by all; on the CPU the plain version leaf by leaf. Leaves on different
+    devices raise. ``kernel_stats`` counts one call per launch."""
+    if not leaves:
+        return []
+    path = _shared_path(*leaves)
+    plan = _mq.plan_many([x.shape for x in leaves])
+    if path == "cuda":
+        qs = _mq.mx_quantize_many_cuda(leaves, precision, plan)
+    else:
+        qs = [_ref.mx_quantize_ref(
+            _pad_last(x.reshape(-1, x.shape[-1]), BLOCK)[0], precision)
+            for x in leaves]
+    for _ in range(plan.launches):
+        _count("mx_quantize", path)
+    return qs
+
+
+def mx_dequantize_many(qs: Sequence[MXTensor],
+                       shapes: Sequence[Sequence[int]],
+                       dtypes: Sequence[torch.dtype]) -> List[torch.Tensor]:
+    """The inverse of :func:`mx_quantize_many`: ``qs[i]`` back to a tensor
+    of ``shapes[i]`` (its real width ``shapes[i][-1]``, the padding
+    dropped) and ``dtypes[i]``, on the card in ONE launch for up to
+    ``mx_quantize.MAX_LEAVES`` leaves (fp32 results are views of one
+    arena), on the CPU the plain version leaf by leaf."""
+    if not qs:
+        return []
+    path = _shared_path(*qs)  # MXTensor.device: no plane is read
+    plan = _mq.plan_many(shapes)
+    if path == "cuda":
+        ys = _mq.mx_dequantize_many_cuda(qs, shapes, plan)
+    else:
+        ys = [_ref.mx_dequantize_ref(q)[:, : shape[-1]].reshape(shape)
+              for q, shape in zip(qs, shapes)]
+    for _ in range(plan.launches):
+        _count("mx_dequantize", path)
+    return [y if y.dtype == dtype else y.to(dtype)
+            for y, dtype in zip(ys, dtypes)]
 
 
 def mx_quant_dequant(x: torch.Tensor, precision: str) -> torch.Tensor:

@@ -52,6 +52,10 @@ class MXTensor:
     mx_bits: torch.Tensor  # uint8, [..., K//16] (bit i = sub-block i flag)
     precision: str
 
+    @property
+    def device(self) -> torch.device:
+        return self.mantissa.device
+
 
 def _exponent(x: torch.Tensor) -> torch.Tensor:
     """Unbiased fp32 exponent, elementwise, as int32; zero and denormals

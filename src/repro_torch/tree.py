@@ -12,20 +12,45 @@ from typing import Any, Callable, List, Optional
 def tree_map(fn: Callable, tree: Any, *rest: Any,
              is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """Apply ``fn`` to every leaf (with the matching leaves of ``rest``)."""
-    if is_leaf is not None and is_leaf(tree):
-        return fn(tree, *rest)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
-               for i, v in enumerate(tree)]
-        return type(tree)(out)
-    return fn(tree, *rest)
+    if rest:
+        def walk_rest(t, *rs):
+            if is_leaf is not None and is_leaf(t):
+                return fn(t, *rs)
+            if isinstance(t, dict):
+                return {k: walk_rest(v, *[r[k] for r in rs])
+                        for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)([walk_rest(v, *[r[i] for r in rs])
+                                for i, v in enumerate(t)])
+            return fn(t, *rs)
+
+        return walk_rest(tree, *rest)
+
+    def walk(t):  # the one-tree case, kept lean: serving fills run it
+        if is_leaf is not None and is_leaf(t):
+            return fn(t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)([walk(v) for v in t])
+        return fn(t)
+
+    return walk(tree)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
     """Leaves in the same order ``tree_map`` visits them."""
     leaves: List[Any] = []
-    tree_map(leaves.append, tree)
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        else:
+            leaves.append(t)
+
+    walk(tree)
     return leaves

@@ -12,7 +12,13 @@ give the same bits. The backward pair (conversion stage, then staged
 GEMMs) at every phase-6 GEMM and a ragged stem, bitwise the two fused
 launches it replaces, with a wrong-axis dW that still fails the typical
 limit; and a reduced ResNet18 SGD step, run twice, bit for bit the same
-(deterministic cuDNN, set by ``device.resolve_device``).
+(deterministic cuDNN, set by ``device.resolve_device``). The grouped MX
+quantize and dequantize kernels (one launch per tree) bitwise equal to the
+plain versions leaf by leaf at mx4/mx6/mx9, on the full-width trees of
+ResNet18, WideResNet50, ViT-B/32 and ViT-B/16, on odd and special leaves
+(ragged K, K not a multiple of 4, misaligned rows, fp16 and bf16, empty,
+zero and denormal blocks) and on a tree above the launch table's cap; the
+library's table agrees with the wrapper's, and a bad table raises.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip without a card.
 On the card (``--noconftest``: ``tests/conftest.py`` imports JAX, which the
@@ -373,3 +379,95 @@ def test_reduced_resnet18_sgd_step_repeats_bitwise(card):
     assert torch.backends.cudnn.deterministic is True
     for a, b in zip(tree_leaves(runs[0]), tree_leaves(runs[1])):
         assert torch.equal(_bits(a), _bits(b))
+
+
+GROUPED_MODELS = ("RESNET18", "WIDERESNET50", "VIT_B32", "VIT_B16")
+
+
+@pytest.fixture(scope="module")
+def grouped_trees():
+    """Label -> leaves: the quantizable leaves of each full-width model
+    (random weights from a seed), odd and special leaves, and a tree above
+    the launch table's cap. Built on the card on first use."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only "
+                    "there")
+    from repro_torch.configs import dacapo_pairs
+    from repro_torch.core.mx import _quantizable
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    trees = {}
+    for name in GROUPED_MODELS:
+        cfg = getattr(dacapo_pairs, name)
+        params = make_vision_model(cfg, dev).init(gen)
+        trees[name] = [p for p in tree_leaves(params) if _quantizable(p, 1024)]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    special = randn(64, 48)
+    special[0, :16] = 0.0
+    special[1, 16:32] = 1e-40 * torch.arange(1, 17, device=dev)
+    special[2, :16] = -0.0
+    special[3, :16] = torch.tensor([1.5, 2.5, -0.5, 3.5, 0.75, -1.25, 6.5,
+                                    7.5] * 2, device=dev)
+    trees["odd"] = [special, randn(5, 1000), randn(7, 30), randn(2, 3, 33),
+                    randn(16, 8), randn(4097)[1:].view(64, 64),
+                    randn(24, 96).half(), randn(24, 100).bfloat16(),
+                    torch.empty((0, 48), device=dev), randn(1, 16)]
+    shapes = ((17, 48), (3, 1000), (64, 64), (2, 30), (1, 16), (9, 8, 16))
+    trees["above the cap"] = [randn(*shapes[i % len(shapes)])
+                              for i in range(2 * mxq.MAX_LEAVES + 3)]
+    return trees
+
+
+@pytest.mark.parametrize("precision", ["mx4", "mx6", "mx9"])
+@pytest.mark.parametrize("tree", GROUPED_MODELS + ("odd", "above the cap"))
+def test_grouped_quantize_matches_plain_leaf_by_leaf(card, grouped_trees,
+                                                     tree, precision):
+    from repro_torch.kernels import mx_quantize as mxq
+
+    leaves = grouped_trees[tree]
+    shapes = [tuple(x.shape) for x in leaves]
+    plan = mxq.plan_many(shapes)
+    mxq.reset_launch_counts()
+    qs = ops.mx_quantize_many(leaves, precision)
+    ys = ops.mx_dequantize_many(qs, shapes, [x.dtype for x in leaves])
+    again = mxq.mx_dequantize_many_cuda(qs, shapes, plan)
+    torch.cuda.synchronize()
+    counts = mxq.launch_counts()
+    assert counts["mx_quantize"] == plan.launches
+    assert counts["mx_dequantize"] == 2 * plan.launches
+    assert plan.launches == (3 if tree == "above the cap" else 1)
+    for x, q, y, y2 in zip(leaves, qs, ys, again):
+        k = x.shape[-1]
+        qp = ref.mx_quantize_ref(ops._pad_last(x.reshape(-1, k),
+                                               ref.BLOCK)[0], precision)
+        for f in ("mantissa", "exponent", "mx_bits"):
+            assert torch.equal(getattr(q, f), getattr(qp, f)), (x.shape, f)
+        want = ref.mx_dequantize_ref(qp)[:, :k].reshape(x.shape)
+        assert y.dtype == x.dtype and y.shape == x.shape
+        assert torch.equal(y.float().view(torch.int32),
+                           want.to(x.dtype).float().view(torch.int32))
+        assert torch.equal(y2.view(torch.int32), want.view(torch.int32))
+
+
+def test_grouped_table_and_launch_errors(card):
+    """The library's leaf record and cap are the wrapper's, and a table the
+    kernels cannot take comes back as a CUDA error that the wrapper
+    raises."""
+    from repro_torch.kernels import mx_quantize as mxq
+
+    lib = mxq.load()  # checks the record's size, the cap and the chunk
+    assert lib.mx_many_leaf_bytes() == mxq.LEAF_DTYPE.itemsize
+    assert lib.mx_many_max_leaves() == mxq.MAX_LEAVES
+    leaves = np.zeros(mxq.MAX_LEAVES + 1, mxq.LEAF_DTYPE)
+    for n, mb in ((0, 4), (mxq.MAX_LEAVES + 1, 4), (1, 0)):
+        code = mxq.launch(lib.mx_quantize_many, card, leaves.ctypes.data, n,
+                          mb, 1)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mxq.check(lib, code, "mx_quantize")

@@ -12,7 +12,7 @@ import torch
 import chip_smoke
 
 
-def _run(acc=0.5, phases=3, drift=1, launches=101):
+def _run(acc=0.5, phases=3, drift=1, launches=5):
     log = [{"t": 15.0 * (i + 1), "acc_valid": acc, "acc_label": acc,
             "drift": i == 1} for i in range(phases)]
     res = types.SimpleNamespace(phase_log=log, drift_events=drift,
@@ -21,7 +21,7 @@ def _run(acc=0.5, phases=3, drift=1, launches=101):
     session = types.SimpleNamespace(student_params={
         "w": torch.randn(4, 3, generator=gen), "b": torch.zeros(3)})
     counts = {"mx_quantize": launches, "mx_dequantize": launches}
-    return (session, None, res, 1.0, 1.0, counts, {})
+    return (session, None, res, 1.0, 1.0, launches, counts, {})
 
 
 def _flip_one_bit(run):
@@ -36,7 +36,7 @@ def _flip_one_bit(run):
     (lambda r: _run(drift=2), "drift events"),
     (lambda r: _run(acc=0.25), "phase 0"),
     (lambda r: _flip_one_bit(r), "student parameters"),
-    (lambda r: _run(launches=100), "launches"),
+    (lambda r: _run(launches=4), "launches"),
 ])
 def test_run_differences_names_each_difference(change, what):
     first = _run()
