@@ -55,8 +55,10 @@ exits non-zero without printing a result:
    on every GEMM and on ragged and zero-block shapes, with an all-zero dW
    and a dW of g quantized along the wrong axis shown to fail the typical
    limit at every GEMM; times at the largest GEMM (the stem; the pair's
-   dX and dW also alone), of whole passes beside their summed bounds, and
-   of each GEMM's fused and prequant launch beside its bound; as a
+   dX and dW also alone), of whole passes beside their summed bounds (the
+   unfused chain's 21 ``mx_matmul`` launches on pre-quantized operands
+   too), and of each GEMM's unfused (with the path it takes), fused and
+   prequant launch beside its bound; as a
    yardstick only, not the same function, ``torch.matmul`` in bf16 on the
    stem's pre-dequantized operands (``library_ms`` stays null: no PyTorch
    call computes an MX GEMM). The backward pair is also timed per GEMM,
@@ -87,6 +89,10 @@ exits non-zero without printing a result:
    frames/s; one MX-free SGD step of full-width ViT-B/32 with finite
    gradients (the attention's plain backward on the card).
 
+Device times are medians over launches between CUDA events, the L2
+flushed before each and its dirty lines written back before the start
+event (``flush_l2``).
+
 Before the last line it prints the card's ``nvidia-smi`` line and one JSON
 object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -113,20 +119,41 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, iters: int = 15, spin: int = 1_000_000) -> float:
-    """Median per-call device time, L2 flushed before each call (a
-    serving-copy fill finds the weights cold). A spin kernel of ``spin``
-    cycles ahead of the start event lets the host enqueue the call before
-    the device reaches it, so host-side launch overhead stays out of the
-    time."""
+def flush_l2(clean: bool):
+    """The L2 flush ahead of a timed window: ``flush()`` zeroes a buffer
+    five times the L2 (a serving-copy fill finds the weights cold) and,
+    where ``clean``, then reads a second one, so that the zeroed lines are
+    written back before the window opens rather than inside it, where it
+    would weigh on a short call (gemm_ablation.py's timer rows time a
+    short quantize and the stem's GEMM under both flushes)."""
+    import torch
+
+    dirty = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    other = (torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             if clean else None)
+
+    def flush():
+        dirty.zero_()
+        if other is not None:
+            other.max()
+
+    return flush
+
+
+def time_ms(fn, iters: int = 15, spin: int = 1_000_000,
+            clean: bool = True) -> float:
+    """Median per-call device time, L2 flushed before each call
+    (``flush_l2``). A spin kernel of ``spin`` cycles ahead of the start
+    event lets the host enqueue the call before the device reaches it, so
+    host-side launch overhead stays out of the time."""
     import numpy as np
     import torch
 
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = flush_l2(clean)
     fn()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        flush()
         torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -138,18 +165,18 @@ def time_ms(fn, iters: int = 15, spin: int = 1_000_000) -> float:
     return float(np.median(times))
 
 
-def pass_ms(fns, reps: int = 3) -> float:
+def pass_ms(fns, reps: int = 3, clean: bool = True) -> float:
     """Median over ``reps`` of the summed device time of the calls in
-    ``fns``, run back to back once the L2 is flushed (each call between
-    its own pair of events, behind one spin kernel long enough for the
-    host to enqueue them all)."""
+    ``fns``, run back to back once the L2 is flushed (``flush_l2``; each
+    call between its own pair of events, behind one spin kernel long
+    enough for the host to enqueue them all)."""
     import numpy as np
     import torch
 
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = flush_l2(clean)
     sums = []
     for _ in range(reps):
-        flush.zero_()
+        flush()
         torch.cuda._sleep(50_000_000)
         events = []
         for fn in fns:
@@ -1179,10 +1206,12 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
     staged_floor = sum(pair_staged_floor_ms(*shape) for shape in gemms)
     serve_ms = pass_ms([lambda a=a, qw=qw: mxf.mx_matmul_prequant_cuda(
         a, qw, "mx6") for a, qw in zip(acts, qws)])
+    qas = [ops.mx_quantize(a, "mx6") for a in acts]
+    unfused_pass = pass_ms([lambda qa=qa, qw=qw: mxm.mx_matmul_cuda(qa, qw)
+                            for qa, qw in zip(qas, qws)])
     flops = sum(2 * m * n * k for m, n, k in gemms)
     bound = {name: sum(gemm_bound_ms(name, *shape)[0] for shape in gemms)
-             for name in ("mx_matmul_fused", "mx_matmul_bwd_pair",
-                          "mx_matmul_prequant")}
+             for name in GEMM_REPLACES}
     log("gemm", f"summed device time (summed bound): MX9 training pass "
         f"({count} fused + {count} pair launches) {train_ms:.4f} ms "
         f"({bound['mx_matmul_fused'] + bound['mx_matmul_bwd_pair']:.4f}), "
@@ -1195,12 +1224,19 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
         f"{bound['mx_matmul_bwd_pair']:.4f}, staged floor "
         f"{staged_floor:.4f}), of which their conversion stages alone "
         f"{stage_pass:.4f} ms")
+    log("gemm", f"the unfused chain's {count} mx_matmul launches on their "
+        f"pre-quantized mx6 operands {unfused_pass:.4f} ms (bound "
+        f"{bound['mx_matmul']:.4f}, "
+        f"{100 * bound['mx_matmul'] / unfused_pass:.1f} % of it)")
     # Where each pass's time goes: every GEMM's kernels alone.
     per_gemm = []
-    for (m, n, k), a, w, g, qw, (pieces, p_dx, p_dw) in zip(
-            gemms, acts, ws, cots, qws, plans):
+    for (m, n, k), a, w, g, qa, qw, (pieces, p_dx, p_dw) in zip(
+            gemms, acts, ws, cots, qas, qws, plans):
         row = {"shape_mnk": [m, n, k],
                "tile": [mxm.TILE_M, mxm.tile_n(n)], "pieces": pieces,
+               "unfused_path": mxm.mx_path(m, n, qa.mantissa.shape[1]),
+               "unfused_ms": time_ms(lambda: mxm.mx_matmul_cuda(qa, qw)),
+               "unfused_bound_ms": gemm_bound_ms("mx_matmul", m, n, k)[0],
                "fused_ms": time_ms(lambda: mxf.mx_matmul_fused_cuda(
                    a, w, "mx9", "mx9")),
                "fused_bound_ms": gemm_bound_ms("mx_matmul_fused", m, n,
@@ -1218,7 +1254,9 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
                                               k)[0],
                "pair_staged_floor_ms": pair_staged_floor_ms(m, n, k)}
         per_gemm.append(row)
-        log("gemm", "{shape_mnk} tile {tile} pieces {pieces}: fused mx9 "
+        log("gemm", "{shape_mnk} tile {tile} pieces {pieces}: unfused mx6 "
+            "{unfused_ms:.4f} ms (bound {unfused_bound_ms:.4f}; path "
+            "{unfused_path}), fused mx9 "
             "{fused_ms:.4f} ms (bound {fused_bound_ms:.4f}), prequant mx6 "
             "{prequant_ms:.4f} ms (bound {prequant_bound_ms:.4f}); pair mx9 "
             "{pair_ms:.4f} ms, its stage {pair_stage_ms:.4f} ms (bound "
@@ -1245,8 +1283,11 @@ def gemm_phase(cfg, params, batch: int, dev="cuda"):
         if row["name"] == "mx_matmul_bwd_pair":
             row.update(pass_ms=pair_pass, stage_pass_ms=stage_pass,
                        staged_floor_pass_ms=staged_floor)
+        if row["name"] == "mx_matmul":
+            row.update(pass_ms=unfused_pass,
+                       pass_bound_ms=bound["mx_matmul"])
         if row["name"] == "mx_matmul_fused":
-            row["per_gemm"] = per_gemm  # with the prequant and pair times
+            row["per_gemm"] = per_gemm  # with every kernel's times
     return rows
 
 

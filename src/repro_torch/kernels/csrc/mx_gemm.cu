@@ -26,10 +26,12 @@
 // layer3 (6272, 256, K) 10.9 (10.6) at 1152, 19.9 (19.4) x3 at 2304, 2.9
 // (2.9) at 128; layer4 (1568, 512, K) 6.7 (5.7) at 2304, 12.4 (10.4) x3
 // at 4608, 1.6 (1.5) at 256; the head (32, 1000, 512) 0.7 (0.2). A pass:
-// 670 (660) us. The pair (g, x and w read, dX and dW written) bounds at
-// 171.6 us at the stem, 1245.4 us a pass; staging its operands as bf16
-// (below) adds their bytes written and read once: 305.8 us and 2012.9 us
-// (chip_smoke.pair_staged_floor_ms).
+// 670 (660) us. The unfused GEMM reads both operands stored (MX): the
+// stem 52.2 us, layer1 27.1 x4, a pass 271 us (layer3's and layer4's
+// long contractions bound by operations). The pair (g, x and w read, dX
+// and dW written) bounds at 171.6 us at the stem, 1245.4 us a pass;
+// staging its operands as bf16 (below) adds their bytes written and read
+// once: 305.8 us and 2012.9 us (chip_smoke.pair_staged_floor_ms).
 //
 // Design. A dequantized MX value is an integer of at most 7 bits times a
 // power of two, exact in bf16 down to bf16's smallest subnormal step
@@ -75,11 +77,22 @@
 //   resident rhs — a rhs under a single 64-wide tile column with no split
 //       and Kp <= 768 (layer1) is converted once per CTA into a resident
 //       bf16 buffer, and the ring carries the lhs alone.
-//   panel path (panel_kernel) — an fp32 lhs of contiguous rows that are
-//       not 16-byte aligned (the stem's K = 147) over a short contraction,
-//       N <= 64, no split: a tile's whole lhs panel (128 rows, one span of
-//       512 K bytes on a 16-byte boundary) comes by one cp.async.bulk
-//       while the tile before converts, and the rhs stays resident.
+//   panel path (panel_kernel) — an lhs of contiguous rows over a short
+//       contraction, N <= 64, no split: a tile's whole lhs panel (128 rows,
+//       16-byte aligned spans) comes by cp.async.bulk while the tile before
+//       converts, and the rhs stays resident. The fused and prequant stem
+//       (an fp32 lhs of 588-byte rows, which neither TMA nor 16-byte
+//       cp.async can cut) and the unfused stem (stored MX: mantissa and
+//       both planes, three copies a tile).
+//   the unfused GEMM (mx_gemm_mx) — its operands are stored MX, so only
+//       dequantized; a path by shape (mx_panel_path): the stem's panel,
+//       two CTAs an SM; else the staged ring (run_mx): the rhs dequantized
+//       once per GEMM into a bf16 K-major copy (rhs_stage_kernel), its
+//       boxes fed by TMA beside the lhs's and read by the wgmmas from the
+//       stage, so the slab loop converts the lhs alone; the lhs's mantissa
+//       comes by one 2-D TMA box a slab, and each converting thread reads
+//       its unit's two plane bytes a slab ahead (the planes' rows, Kp / 16
+//       bytes apart, fit no box). No cp.async: one mbarrier a stage.
 //   the backward pair (pair_stage_kernel, pair_kernel) — converts each
 //       operand value once for each axis it is quantized along (in-tile
 //       conversion repeated the cotangent's and the weight's up to 36
@@ -563,6 +576,22 @@ __device__ __forceinline__ void copy_bytes(uint8_t* s, int spitch,
   }
 }
 
+// 16 mantissa bytes of one block (one 16-byte shared-memory word) as exact
+// floats: mx::mantissa_float of each byte, with the sign flip done for four
+// bytes at once and each float's pattern 0x4B0000xx built by one byte
+// permute.
+__device__ __forceinline__ void mantissas(const uint4& w,
+                                          float (&q)[mx::kBlock]) {
+  const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                             w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < mx::kBlock; ++i) {
+    q[i] = __fsub_rn(__uint_as_float(__byte_perm(words[i / 4], 0x4B000000u,
+                                                 0x7650u | (i % 4))),
+                     8388736.0f);
+  }
+}
+
 // A stored MX operand of X rows, only dequantized. kInnerK (the lhs,
 // K-last): mantissa (x, k) at mant[x * pitch_m + k], planes (x, kb) at
 // [x * pitch_p + kb]. Else (the rhs, K-first): mantissa at
@@ -659,6 +688,80 @@ struct MXOp {
     float v[mx::kBlock];
     mx::dequantize_block_f(q, e, packed, mb, v);
     store_bf16<X>(buf, x, kb, v);
+  }
+};
+
+// The prequant GEMM's ring and the panel path's resident rhs. (MXOp's lhs
+// form, K-last, has had no user since the unfused GEMM's lhs became LhsMX;
+// builds of MXOp with it removed ran the prequant GEMM 0.3-0.6 % slower
+// over phase 6's pass on an H100, beyond the spread of its runs, so the
+// struct stays as the prequant GEMM was measured with it.)
+template <int BN>
+using RhsMX = MXOp<BN, false>;
+
+// The unfused GEMM's lhs in the staged ring: a stored MX operand [M, Kp],
+// K-last (mantissa (m, k) at [m * Kp + k], planes (m, kb) at [m * Kp / 16 +
+// kb], all three 16-byte aligned), valid for m < ext_x. A slab's mantissa
+// (128 rows x 64 bytes) comes by one 2-D TMA box, zero-filled past the
+// edges, 64-byte swizzled: chunk c (16 bytes) of row r lands at chunk c ^
+// (r / 2 % 4), so a quarter warp's reads of one block column fall on 32
+// banks. Its planes' rows lie Kp / 16 bytes apart, aligned to 16 only where
+// Kp is a multiple of 256, so no box takes them: a thread converts the same
+// (row, block) unit of every slab and reads that unit's two plane bytes
+// from device memory itself, a slab ahead (planes; a tile's rows of both
+// planes, 8 Kp bytes, stay in L1 across its slabs).
+struct LhsMX {
+  static constexpr int kStageBytes = kBM * kBK;  // a slab's mantissa
+  CUtensorMap tmap;  // mantissa [M][Kp] int8, box 64 x 128
+  const int8_t* expo;
+  const uint8_t* bits;
+  long long pitch_p;  // Kp / 16
+  int ext_x, ext_kp, mb;
+
+  // Thread 0: the slab at (x0, k0)'s mantissa box, counted by bar.
+  __device__ __forceinline__ void load(void* raw, int x0, int k0,
+                                       uint64_t* bar) const {
+    tma_load_2d(raw, &tmap, k0, x0, bar);
+  }
+
+  // Unit u's exponent and bits bytes of the slab at (x0, k0), 0 past the
+  // edges: exponent | bits << 8.
+  __device__ __forceinline__ uint32_t planes(int x0, int k0, int u) const {
+    const int x = x0 + u % kBM, kb = k0 / mx::kBlock + u / kBM;
+    if (x >= ext_x || kb >= ext_kp / mx::kBlock) return 0u;
+    const long long o = x * pitch_p + kb;
+    return (uint32_t)(uint8_t)__ldg(expo + o) |
+           ((uint32_t)__ldg(bits + o) << 8);
+  }
+
+  // Unit u = (x = u % kBM, kb = u / kBM) of the slab whose mantissa sits at
+  // raw, its planes pl.
+  __device__ __forceinline__ void convert(const uint8_t* raw, int u,
+                                          uint32_t pl,
+                                          __nv_bfloat16* buf) const {
+    const int x = u % kBM, kb = u / kBM;
+    float q[mx::kBlock], v[mx::kBlock];
+    mantissas(*reinterpret_cast<const uint4*>(
+                  raw + x * kBK + mx::kBlock * (kb ^ ((x >> 1) & 3))),
+              q);
+    mx::dequantize_block_f(q, (int8_t)(pl & 0xFFu), pl >> 8, mb, v);
+    store_bf16<kBM>(buf, x, kb, v);
+  }
+};
+
+// The unfused GEMM's staged rhs: the stored MX rhs dequantized once per
+// GEMM (rhs_stage_kernel) into bf16 [N][Kp], K-major; a slab's box (64
+// contraction values by BN columns, 128-byte swizzled, zero-filled past N)
+// comes by TMA, and the wgmmas read it from the stage with no conversion.
+template <int BN>
+struct RhsBF16 {
+  static constexpr int kStageBytes = BN * kBK * 2;
+  CUtensorMap tmap;
+
+  // Thread 0: the slab at (n0, k0)'s box, counted by bar.
+  __device__ __forceinline__ void load(void* raw, int n0, int k0,
+                                       uint64_t* bar) const {
+    tma_load_2d(raw, &tmap, k0, n0, bar);
   }
 };
 
@@ -913,6 +1016,208 @@ __global__ void __launch_bounds__(kThreads, 1)
     gemm_kernel(const __grid_constant__ Gemm<BN, A, B> g) {
   extern __shared__ __align__(128) uint8_t smem[];
   run<kResB>(g, blockIdx.x, gridDim.x, smem);
+}
+
+// Shared memory of the unfused GEMM's staged ring (run_mx), from a
+// 1024-byte aligned base: kStages stages, each the lhs slab (LhsMX) and the
+// staged rhs's box (RhsBF16, 1024-byte aligned for its swizzle); two bf16
+// lhs buffers; one mbarrier a stage. A 64-wide tile takes four stages, 99
+// KB, and two CTAs an SM (kMinBlocks: at most 64 registers a thread), so
+// one CTA converts while the other waits; a 128-wide tile's accumulators
+// need more registers than two CTAs leave, and it takes six stages.
+template <int BN>
+struct MXLayout {
+  static constexpr int kMinBlocks = BN == 64 ? 2 : 1;
+  static constexpr int kStage =
+      LhsMX::kStageBytes + RhsBF16<BN>::kStageBytes;
+  static constexpr int kBf16 = kBM * kBK * 2;  // one lhs buffer
+  static constexpr int kFixed = 2 * kBf16 + 8 * 8 + 1024;
+  static constexpr int kFit = (kSmemMax - kFixed) / kStage;
+  static constexpr int kMax = BN == 64 ? 4 : 6;
+  static constexpr int kStages = kFit < kMax ? kFit : kMax;
+  static constexpr int kBytes = kStages * kStage + kFixed;
+  static_assert(kStage % 1024 == 0, "stages 1024-byte aligned");
+  static_assert(kStages >= 3, "two slabs in flight while one converts");
+  static_assert(kBytes * kMinBlocks <= 233472,  // an SM's 228 KB
+                "kMinBlocks CTAs an SM");
+};
+
+// The units first, first + stride, ... of one unfused GEMM on one CTA, the
+// rhs staged: the ring of run with the stored MX lhs (LhsMX) the only
+// operand converted in the slab loop (its mantissa by TMA, its planes read
+// by the converting threads a slab ahead: no cp.async), the staged rhs's
+// boxes (RhsBF16) beside the lhs's slabs and read by the wgmmas from the
+// stage itself. So a stage is refilled only once every warpgroup has waited
+// on the wgmmas that read it: the slab i + S - 2 is issued into the stage of
+// slab i - 2 after the barrier that follows slab i's arrival (each
+// warpgroup waited on slab i - 2's wgmmas in the iteration before), and
+// S - 2 slabs are in flight while one converts. Slabs, wgmmas and
+// promotions run as in run: the same bits.
+template <int BN>
+__device__ __forceinline__ void run_mx(const Gemm<BN, LhsMX, RhsBF16<BN>>& g,
+                                       int first, int stride,
+                                       uint8_t* smem_raw) {
+  using L = MXLayout<BN>;
+  constexpr int S = L::kStages, D = S - 2;
+  constexpr int kAcc = BN / 4;
+  static_assert(kBM * kKB == kThreads, "one lhs unit a thread a slab");
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* abuf =
+      reinterpret_cast<__nv_bfloat16*>(smem + S * L::kStage);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + S * L::kStage + 2 * L::kBf16);
+  const int wm = threadIdx.x / 128 % 2, wn = threadIdx.x / 256;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto begin = [&](Cursor& cur, int unit) {
+    cur.unit = unit;
+    const int s = unit / g.tiles, tile = unit - s * g.tiles;
+    const int tm = tile / g.tiles_n;
+    cur.k0 = s * g.chunk;
+    cur.hi = min(g.kp, cur.k0 + g.chunk);
+    cur.m0 = tm * kBM;
+    cur.n0 = (tile - tm * g.tiles_n) * BN;
+  };
+  auto next = [&](Cursor& cur) {
+    cur.k0 += kBK;
+    if (cur.k0 >= cur.hi) begin(cur, cur.unit + stride);
+  };
+  auto issue = [&](const Cursor& cur, int stage) {
+    uint8_t* st = smem + stage * L::kStage;
+    if (threadIdx.x == 0) {  // one arrival a phase, with the TMA bytes
+      fence_proxy_async();
+      mbar_expect_tx(&bars[stage], L::kStage);
+      g.a.load(st, cur.m0, cur.k0, &bars[stage]);
+      g.b.load(st + LhsMX::kStageBytes, cur.n0, cur.k0, &bars[stage]);
+    }
+  };
+
+  Cursor prod, cons;
+  begin(prod, first);
+  begin(cons, first);
+#pragma unroll
+  for (int s = 0; s < D; ++s) {
+    if (prod.unit < g.units) {
+      issue(prod, s);
+      next(prod);
+    }
+  }
+  uint32_t pl_next = g.a.planes(cons.m0, cons.k0, threadIdx.x);
+  float acc[kAcc], total[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = total[i] = 0.0f;
+  int ps = D, cs = 0;
+  uint32_t phase = 0;  // parity of stage cs's barrier in this round
+  Cursor pend = cons;  // the slab whose wgmmas are in flight
+  bool pend_last = false;
+
+  auto settle = [&]() {
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) total[i] += acc[i];
+    if (pend_last) {
+      float* out = g.split > 1
+                       ? g.ws + (long long)(pend.unit / g.tiles) * g.M * g.N
+                       : g.c;
+      store_tile<BN>(total, out, g.M, g.N, pend.m0, pend.n0);
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) total[i] = 0.0f;
+    }
+  };
+
+  for (int slab = 0; cons.unit < g.units; ++slab) {
+    const uint32_t pl = pl_next;  // this slab's planes, read a slab ago
+    {
+      Cursor ahead = cons;
+      next(ahead);
+      if (ahead.unit < g.units) {
+        pl_next = g.a.planes(ahead.m0, ahead.k0, threadIdx.x);
+      }
+    }
+    mbar_wait(&bars[cs], phase);
+    __syncthreads();  // slab cs has landed; the stage of slab - 2 is free
+    if (prod.unit < g.units) {
+      issue(prod, ps);
+      next(prod);
+    }
+    ps = ps + 1 == S ? 0 : ps + 1;
+    const uint8_t* st = smem + cs * L::kStage;
+    __nv_bfloat16* a16 = abuf + (slab & 1) * (L::kBf16 / 2);
+    g.a.convert(st, threadIdx.x, pl, a16);
+    fence_proxy_async();
+    __syncthreads();  // slab cs converted
+    settle();  // the slab before, whose wgmmas ran while this one converted
+    const int nk = min(kKB, (cons.hi - cons.k0) / mx::kBlock);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKB; ++kk) {
+      if (kk < nk) {
+        wgmma_tile<BN>(
+            acc, desc(a16 + (kk * (kBM / 8) + 8 * wm) * 128, 128, 256),
+            desc_sw128(st + LhsMX::kStageBytes + wn * (BN / 2) * 128 +
+                       32 * kk),
+            kk > 0);
+      }
+    }
+    wgmma_commit();
+    pend = cons;
+    pend_last = cons.k0 + kBK >= cons.hi;
+    next(cons);
+    if (++cs == S) {
+      cs = 0;
+      phase ^= 1;
+    }
+  }
+  settle();
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, MXLayout<BN>::kMinBlocks)
+    mx_kernel(const __grid_constant__ Gemm<BN, LhsMX, RhsBF16<BN>> g) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  run_mx(g, blockIdx.x, gridDim.x, smem);
+}
+
+// The staged rhs of the unfused GEMM: a stored K-first MX rhs (mantissa
+// [Kp, N], planes [Kp/16, N]) dequantized once into bf16 dst [N][Kp]
+// (K-major: the boxes RhsBF16 reads). One thread a (column, block),
+// neighbouring threads on neighbouring columns, so each of its reads is one
+// coalesced row of bytes; it writes its block's 16 values as 32 contiguous
+// bytes of its column's row of dst (the high halves of the fp32 patterns,
+// as store_bf16).
+constexpr int kRhsStageThreads = 256;
+
+__global__ void __launch_bounds__(kRhsStageThreads)
+    rhs_stage_kernel(const int8_t* __restrict__ rm,
+                     const int8_t* __restrict__ re,
+                     const uint8_t* __restrict__ rx, int mb,
+                     __nv_bfloat16* __restrict__ dst, int N, int kp) {
+  const long long u = blockIdx.x * (long long)kRhsStageThreads + threadIdx.x;
+  if (u >= (long long)N * (kp / mx::kBlock)) return;
+  const int kb = (int)(u / N), n = (int)(u - (long long)kb * N);
+  float q[mx::kBlock], v[mx::kBlock];
+#pragma unroll
+  for (int i = 0; i < mx::kBlock; ++i) {
+    q[i] = mx::mantissa_float(
+        __ldg(rm + (long long)(mx::kBlock * kb + i) * N + n));
+  }
+  mx::dequantize_block_f(q, (int8_t)__ldg(re + u), __ldg(rx + u), mb, v);
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w[i] = __byte_perm(__float_as_uint(v[2 * i]),
+                       __float_as_uint(v[2 * i + 1]), 0x7632);
+  }
+  uint4* p = reinterpret_cast<uint4*>(dst + (long long)n * kp +
+                                      mx::kBlock * kb);
+  p[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  p[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
 // The backward pair, staged (mx_pair_stage, then mx_gemm_bwd_pair). Each
@@ -1393,33 +1698,130 @@ __global__ void __launch_bounds__(kPairThreads, 1)
   }
 }
 
-// The stem's path: an fp32 lhs [M, K] whose rows are contiguous but not
-// 16-byte aligned (K % 4 != 0: the stem's K = 147, 588-byte rows), which
-// neither TMA nor 16-byte cp.async can cut into k-slabs, over a contraction
-// short enough that two of a tile's lhs panels fit in shared memory — 128
-// rows x K, one contiguous span of 512 K bytes on a 16-byte boundary, one
-// cp.async.bulk — with N <= 64 (one tile column) and no split. The rhs is
-// the same for every tile, so a CTA converts it once and keeps it as bf16;
-// the next tile's panel loads while this one converts. The wgmmas and the
-// promotions run in the ring's order (slabs of 64 from k = 0), so outputs
-// are bit for bit the ring's (the unfused stem takes the ring).
-struct Panel {
+// The stem's path (panel_kernel): a tile's whole lhs panel comes by
+// cp.async.bulk while the tile before converts, over a contraction short
+// enough that two panels, the tile's bf16 lhs and the resident rhs fit in
+// shared memory, with N <= 64 (one tile column) and no split. The rhs is the
+// same for every tile, so a CTA converts it once and keeps it as bf16. The
+// wgmmas and the promotions run in the ring's order (slabs of 64 from k =
+// 0), so outputs are bit for bit the ring's. Two panels:
+//   PanelF32 — an fp32 lhs [M, K] whose rows are contiguous but not 16-byte
+//       aligned (K % 4 != 0: the fused and prequant stem's K = 147,
+//       588-byte rows), which neither TMA nor 16-byte cp.async can cut into
+//       k-slabs: 128 rows x K, one span of 512 K bytes on a 16-byte
+//       boundary, one copy; quantized and dequantized in-tile.
+//   PanelMX — a stored MX lhs [M, Kp], K-last (the unfused stem): a tile's
+//       128 rows are three spans at 16-byte aligned offsets — mantissa 128
+//       Kp bytes, exponent and bits planes 8 Kp bytes each — three copies
+//       on one mbarrier; only dequantized. A short last tile's planes may
+//       end off a 16-byte multiple: the copies take the spans rounded down
+//       and the threads read the last bytes (never past the planes' ends).
+struct PanelF32 {
+  static constexpr int kMinBlocks = 1;  // CTAs an SM (its panels fill it)
   const float* a;
   int M, K, kp, mb;
   int tiles;        // ceil(M / 128)
   int panel_bytes;  // one panel buffer, a multiple of 1024
+
+  // Thread 0: the copy of tile `tile`'s panel into dst, counted by bar.
+  __device__ __forceinline__ void issue(int tile, uint8_t* dst,
+                                        uint64_t* bar) const {
+    const int rows = min(kBM, M - tile * kBM);
+    const uint32_t bytes = (uint32_t)rows * K * 4;
+    mbar_expect_tx(bar, bytes);
+    bulk_load(dst, a + (long long)tile * kBM * K, bytes, bar);
+  }
+
+  // The bytes the copy did not bring, once it landed; true if there were
+  // any (a barrier is then due before the conversion).
+  __device__ __forceinline__ bool tail(int, uint8_t*) const { return false; }
+
+  // Unit u = (x = u % kBM, kb = u / kBM) of the panel at src.
+  __device__ __forceinline__ void convert(const uint8_t* src, int u,
+                                          __nv_bfloat16* abuf) const {
+    const int x = u % kBM, kb = u / kBM;
+    const float* row =
+        reinterpret_cast<const float*>(src) + x * K + mx::kBlock * kb;
+    const int valid = K - mx::kBlock * kb;
+    uint32_t bits[mx::kBlock];
+#pragma unroll
+    for (int e = 0; e < mx::kBlock; ++e) {
+      bits[e] = e < valid ? __float_as_uint(row[e]) : 0u;
+    }
+    float q[mx::kBlock], v[mx::kBlock];
+    int ex;
+    uint32_t packed;
+    mx::quantize_block_f(bits, mb, q, ex, packed);
+    mx::dequantize_block_f(q, ex, packed, mb, v);
+    store_bf16<kBM>(abuf, x, kb, v);
+  }
 };
 
-template <class B>
-__global__ void __launch_bounds__(kThreads, 1)
-    panel_kernel(const __grid_constant__ Panel pa,
+struct PanelMX {
+  // Two CTAs an SM where the panel's shared memory allows (the stem's
+  // 110 KB): one converts while the other waits on its wgmmas and stores.
+  static constexpr int kMinBlocks = 2;
+  const int8_t* mant;
+  const int8_t* expo;
+  const uint8_t* bits;
+  int M, kp, mb;
+  int tiles, panel_bytes;
+
+  __device__ __forceinline__ int plane_bytes(int tile) const {
+    return min(kBM, M - tile * kBM) * (kp / mx::kBlock);
+  }
+
+  __device__ __forceinline__ void issue(int tile, uint8_t* dst,
+                                        uint64_t* bar) const {
+    const long long r0 = (long long)tile * kBM;
+    const uint32_t mbytes = (uint32_t)min(kBM, M - tile * kBM) * kp;
+    const uint32_t pbytes = (uint32_t)plane_bytes(tile) & ~15u;
+    mbar_expect_tx(bar, mbytes + 2 * pbytes);
+    bulk_load(dst, mant + r0 * kp, mbytes, bar);
+    if (pbytes > 0) {
+      bulk_load(dst + kBM * kp, expo + r0 * (kp / mx::kBlock), pbytes, bar);
+      bulk_load(dst + kBM * kp + kBM * (kp / mx::kBlock),
+                bits + r0 * (kp / mx::kBlock), pbytes, bar);
+    }
+  }
+
+  __device__ __forceinline__ bool tail(int tile, uint8_t* dst) const {
+    const int n = plane_bytes(tile), lo = n & ~15;
+    if (lo == n) return false;
+    const long long p0 = (long long)tile * kBM * (kp / mx::kBlock);
+    uint8_t* pe = dst + kBM * kp;
+    uint8_t* pb = pe + kBM * (kp / mx::kBlock);
+    for (int i = lo + threadIdx.x; i < n; i += kThreads) {
+      pe[i] = expo[p0 + i];
+      pb[i] = bits[p0 + i];
+    }
+    return true;
+  }
+
+  __device__ __forceinline__ void convert(const uint8_t* src, int u,
+                                          __nv_bfloat16* abuf) const {
+    const int x = u % kBM, kb = u / kBM, nb = kp / mx::kBlock;
+    float q[mx::kBlock], v[mx::kBlock];
+    mantissas(*reinterpret_cast<const uint4*>(src + x * kp + mx::kBlock * kb),
+              q);
+    const uint8_t* pe = src + kBM * kp;
+    const int e = (int8_t)pe[x * nb + kb];
+    const uint32_t packed = pe[kBM * nb + x * nb + kb];
+    mx::dequantize_block_f(q, e, packed, mb, v);
+    store_bf16<kBM>(abuf, x, kb, v);
+  }
+};
+
+template <class PA, class B>
+__global__ void __launch_bounds__(kThreads, PA::kMinBlocks)
+    panel_kernel(const __grid_constant__ PA pa,
                  const __grid_constant__ B b, float* c, int N) {
   constexpr int BN = 64;
   constexpr int kAcc = BN / 4;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* panel0 = reinterpret_cast<float*>(smem);
-  float* panel1 = reinterpret_cast<float*>(smem + pa.panel_bytes);
+  uint8_t* panel0 = smem;
+  uint8_t* panel1 = smem + pa.panel_bytes;
   __nv_bfloat16* abuf =
       reinterpret_cast<__nv_bfloat16*>(smem + 2 * pa.panel_bytes);
   __nv_bfloat16* bbuf = abuf + kBM * pa.kp;
@@ -1430,15 +1832,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  auto issue_panel = [&](int tile, float* dst, uint64_t* bar) {
-    if (threadIdx.x == 0) {
-      const int rows = min(kBM, pa.M - tile * kBM);
-      const uint32_t bytes = (uint32_t)rows * pa.K * 4;
-      mbar_expect_tx(bar, bytes);
-      bulk_load(dst, pa.a + (long long)tile * kBM * pa.K, bytes, bar);
-    }
-  };
-  if ((int)blockIdx.x < pa.tiles) issue_panel(blockIdx.x, panel0, &bars[0]);
+  if ((int)blockIdx.x < pa.tiles && threadIdx.x == 0) {
+    pa.issue(blockIdx.x, panel0, &bars[0]);
+  }
   // The rhs, slab by slab through panel1, into the resident bf16 rhs.
   for (int k0 = 0, r = 0; k0 < pa.kp; k0 += kBK, ++r) {
     if (threadIdx.x == 0) {
@@ -1464,29 +1860,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int blocks = pa.kp / mx::kBlock;
   int i = 0;
   for (int tile = blockIdx.x; tile < pa.tiles; tile += gridDim.x, ++i) {
-    float* cur = i & 1 ? panel1 : panel0;
-    if (tile + (int)gridDim.x < pa.tiles) {
-      if (threadIdx.x == 0) fence_proxy_async();
-      issue_panel(tile + gridDim.x, i & 1 ? panel0 : panel1,
-                  &bars[(i + 1) & 1]);
+    uint8_t* cur = i & 1 ? panel1 : panel0;
+    if (tile + (int)gridDim.x < pa.tiles && threadIdx.x == 0) {
+      fence_proxy_async();
+      pa.issue(tile + gridDim.x, i & 1 ? panel0 : panel1, &bars[(i + 1) & 1]);
     }
     mbar_wait(&bars[i & 1], (i >> 1) & 1);
+    if (pa.tail(tile, cur)) __syncthreads();
 #pragma unroll 1
     for (int u = threadIdx.x; u < kBM * blocks; u += kThreads) {
-      const int x = u % kBM, kb = u / kBM;
-      const float* row = cur + x * pa.K + mx::kBlock * kb;
-      const int valid = pa.K - mx::kBlock * kb;
-      uint32_t bits[mx::kBlock];
-#pragma unroll
-      for (int e = 0; e < mx::kBlock; ++e) {
-        bits[e] = e < valid ? __float_as_uint(row[e]) : 0u;
-      }
-      float q[mx::kBlock], v[mx::kBlock];
-      int ex;
-      uint32_t packed;
-      mx::quantize_block_f(bits, pa.mb, q, ex, packed);
-      mx::dequantize_block_f(q, ex, packed, pa.mb, v);
-      store_bf16<kBM>(abuf, x, kb, v);
+      pa.convert(cur, u, abuf);
     }
     fence_proxy_async();
     __syncthreads();
@@ -1517,37 +1900,55 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Shared memory of panel_kernel for a contraction of K (0 if the path
-// does not apply).
-int panel_smem(int K) {
-  const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
-  const int panel = (kBM * K * 4 + 1023) / 1024 * 1024;
-  const int bytes = 2 * panel + (kBM + 64) * kp * 2 + 3 * 8 + 1024;
-  return bytes <= kSmemMax && 64 * kBK * 4 <= panel ? bytes : 0;
+// Shared memory of panel_kernel for panels of `panel` bytes over a
+// contraction of kp (0 where it does not fit, or where a panel buffer
+// cannot stage the resident rhs's slabs of `stage` bytes).
+int panel_smem(int panel, int kp, int stage) {
+  const int buf = (panel + 1023) / 1024 * 1024;
+  const int bytes = 2 * buf + (kBM + 64) * kp * 2 + 3 * 8 + 1024;
+  return bytes <= kSmemMax && stage <= buf ? bytes : 0;
+}
+
+int f32_panel_smem(int K) {
+  return panel_smem(kBM * K * 4, (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock,
+                    F32Op<64>::kStageBytes);
+}
+
+// A stored MX panel: 1 + 2/16 bytes an element.
+int mx_panel_smem(int kp) {
+  return panel_smem(kBM * kp / 8 * 9, kp, RhsMX<64>::kStageBytes);
 }
 
 // Whether an fp32 lhs (element (m, k) at a[m * sam + k * sak]) takes the
-// panel path (panel_kernel's conditions).
+// panel path (PanelF32's conditions).
 bool panel_path(const void* a, long long sam, long long sak, int M, int N,
                 int K, int split) {
   return sak == 1 && sam == K && K % 4 != 0 && M % 4 == 0 && M > 0 &&
          (uintptr_t)a % 16 == 0 && split == 1 && N <= 64 &&
-         panel_smem(K) > 0;
+         f32_panel_smem(K) > 0;
+}
+
+template <class PA, class B>
+int launch_panel(const PA& pa, const B& b, void* c, int N, void* stream) {
+  const int bytes = 2 * pa.panel_bytes + (kBM + 64) * pa.kp * 2 + 3 * 8 + 1024;
+  auto kernel = panel_kernel<PA, B>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       bytes);
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                bytes);
+  kernel<<<min(pa.tiles, max(per_sm, 1) * sm_count()), kThreads, bytes,
+           (cudaStream_t)stream>>>(pa, b, (float*)c, N);
+  return (int)cudaGetLastError();
 }
 
 template <class B>
-int launch_panel(const void* a, int M, int K, int mb, const B& b, void* c,
-                 int N, void* stream) {
-  const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
-  const Panel pa{(const float*)a, M, K, kp, mb, (M + kBM - 1) / kBM,
-                 (kBM * K * 4 + 1023) / 1024 * 1024};
-  const int bytes = panel_smem(K);
-  auto kernel = panel_kernel<B>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       bytes);
-  kernel<<<min(pa.tiles, sm_count()), kThreads, bytes,
-           (cudaStream_t)stream>>>(pa, b, (float*)c, N);
-  return (int)cudaGetLastError();
+int launch_f32_panel(const void* a, int M, int K, int mb, const B& b, void* c,
+                     int N, void* stream) {
+  const PanelF32 pa{(const float*)a, M, K,
+                    (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock, mb,
+                    (M + kBM - 1) / kBM, (kBM * K * 4 + 1023) / 1024 * 1024};
+  return launch_panel(pa, b, c, N, stream);
 }
 
 // c[i] = ws[0][i] + ws[1][i] + ... + ws[split - 1][i], in that order.
@@ -1671,6 +2072,71 @@ F32Op<X> f32_op(const void* p, long long sx, long long sk, int ext_x,
   return op;
 }
 
+// A 2-D map of bf16 [outer][pitch] (inner elements valid a row): boxes of
+// bi x bo, 128-byte swizzled, zero-filled past the edges. False where it
+// cannot be encoded.
+bool encode_bf16(CUtensorMap* m, const void* p, int inner, int outer,
+                 int pitch, int bi, int bo) {
+  auto encode = tensor_map_encoder();
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)bi, (cuuint32_t)bo};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode != nullptr &&
+         encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The unfused GEMM's lhs (LhsMX): mantissa [M][Kp] int8 in boxes of 64 x
+// 128, 64-byte swizzled, zero-filled past the edges. False where the map
+// cannot be encoded.
+bool lhs_mx(LhsMX& a, const void* lm, const void* le, const void* lx, int M,
+            int kp, int mb) {
+  a.expo = (const int8_t*)le;
+  a.bits = (const uint8_t*)lx;
+  a.pitch_p = kp / mx::kBlock;
+  a.ext_x = M;
+  a.ext_kp = kp;
+  a.mb = mb;
+  auto encode = tensor_map_encoder();
+  const cuuint64_t dims[2] = {(cuuint64_t)kp, (cuuint64_t)M};
+  const cuuint64_t strides[1] = {(cuuint64_t)kp};
+  const cuuint32_t box[2] = {kBK, kBM};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode != nullptr &&
+         encode(&a.tmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(lm), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The unfused GEMM's path, a pure function of the shape (its operands all
+// 16-byte aligned; mx_matmul.py::mx_path mirrors it): the panel (no split,
+// N <= 64 and an MX panel that fits panel_kernel, Kp from 48 to 336: the
+// stem), else the staged ring (run_mx: every other GEMM of ResNet18 and
+// every split).
+bool mx_panel_path(int N, int kp, int split) {
+  return split == 1 && N <= 64 && mx_panel_smem(kp) > 0;
+}
+
+template <int BN>
+int launch_mx(const Gemm<BN, LhsMX, RhsBF16<BN>>& g, cudaStream_t s) {
+  constexpr int bytes = MXLayout<BN>::kBytes;
+  auto kernel = mx_kernel<BN>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       bytes);
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                bytes);
+  kernel<<<min(g.units, max(per_sm, 1) * sm_count()), kThreads, bytes, s>>>(
+      g);
+  launch_reduce(g, s);
+  return (int)cudaGetLastError();
+}
+
 // A staged GEMM over bf16 operands: K-major (kMN = 0) a [M][kp] and b
 // [N][kp]; MN-major (kMN = 1) a [kp][pitch_a] and b [kp][pitch_b], valid
 // for M and N columns. The maps' boxes are those Staged describes, 128-byte
@@ -1691,27 +2157,12 @@ bool make_staged(Staged<BN, kMN>& g, const void* a, int pitch_a,
   g.tiles = (M + kBM - 1) / kBM * g.tiles_n;
   g.units = g.tiles * split;
   if (g.units == 0 || kp == 0) return true;  // nothing to load
-  auto encode = tensor_map_encoder();
-  // inner x outer elements, rows `pitch` elements apart; boxes bi x bo
-  auto map = [&](CUtensorMap* m, const void* p, int inner, int outer,
-                 int pitch, int bi, int bo) {
-    const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-    const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
-    const cuuint32_t box[2] = {(cuuint32_t)bi, (cuuint32_t)bo};
-    const cuuint32_t unit[2] = {1, 1};
-    return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(p), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-  };
-  if (encode == nullptr) return false;
   if constexpr (kMN) {
-    return map(&g.ta, a, M, kp, pitch_a, 64, kBK) &&
-           map(&g.tb, b, N, kp, pitch_b, 64, kBK);
+    return encode_bf16(&g.ta, a, M, kp, pitch_a, 64, kBK) &&
+           encode_bf16(&g.tb, b, N, kp, pitch_b, 64, kBK);
   }
-  return map(&g.ta, a, kp, M, kp, kBK, kBM) &&
-         map(&g.tb, b, kp, N, kp, kBK, BN);
+  return encode_bf16(&g.ta, a, kp, M, kp, kBK, kBM) &&
+         encode_bf16(&g.tb, b, kp, N, kp, kBK, BN);
 }
 
 // Bytes one unit of a staged GEMM moves: its slabs and its output tile.
@@ -1747,9 +2198,6 @@ int launch_pair(const Staged<BN1, 0>& g1, const Staged<BN2, 1>& g2,
 }
 
 using LhsF32 = F32Op<kBM>;
-using LhsMX = MXOp<kBM, true>;
-template <int BN>
-using RhsMX = MXOp<BN, false>;
 
 }  // namespace
 
@@ -1762,23 +2210,54 @@ using RhsMX = MXOp<BN, false>;
 // shapes and the 16-byte alignment of MX tensors.
 
 // Unfused: lhs MXTensor K-last (mantissa [M, Kp]), rhs MXTensor K-first
-// (mantissa [Kp, N]) -> c [M, N].
+// (mantissa [Kp, N]) -> c [M, N], on the panel path where mx_panel_path
+// says so, else the staged ring; rs is a bf16 scratch [N, Kp] for the
+// staged rhs, needed (and written) off the panel path only. Refused
+// (cudaErrorInvalidValue, nothing launched) where an operand is not
+// 16-byte aligned, the staged ring has no scratch or a map cannot be
+// encoded.
 extern "C" int mx_gemm_mx(const void* lm, const void* le, const void* lx,
                           int mb_a, const void* rm, const void* re,
-                          const void* rx, int mb_b, void* c, int M, int N,
-                          int Kp, int split, int chunk, void* ws,
+                          const void* rx, int mb_b, void* rs, void* c, int M,
+                          int N, int Kp, int split, int chunk, void* ws,
                           void* stream) {
-  LhsMX a{(const int8_t*)lm, (const int8_t*)le, (const uint8_t*)lx, Kp,
-          Kp / mx::kBlock, M, Kp, mb_a};
-  if (narrow(N)) {
-    const RhsMX<64> b{(const int8_t*)rm, (const int8_t*)re,
-                      (const uint8_t*)rx, N, N, N, Kp, mb_b};
-    return launch(make_gemm<64>(a, b, c, M, N, Kp, split, chunk, ws),
-                  stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  for (const void* p : {lm, le, lx, rm, re, rx}) {
+    if ((uintptr_t)p % 16 != 0) return (int)cudaErrorInvalidValue;
   }
-  const RhsMX<128> b{(const int8_t*)rm, (const int8_t*)re,
-                     (const uint8_t*)rx, N, N, N, Kp, mb_b};
-  return launch(make_gemm<128>(a, b, c, M, N, Kp, split, chunk, ws), stream);
+  if (M == 0 || N == 0) return (int)cudaGetLastError();
+  if (Kp == 0) {
+    cudaMemsetAsync(c, 0, sizeof(float) * M * N, s);
+    return (int)cudaGetLastError();
+  }
+  const int8_t* rm8 = (const int8_t*)rm;
+  const int8_t* re8 = (const int8_t*)re;
+  const uint8_t* rx8 = (const uint8_t*)rx;
+  if (mx_panel_path(N, Kp, split)) {
+    const PanelMX pa{(const int8_t*)lm,  (const int8_t*)le,
+                     (const uint8_t*)lx, M,
+                     Kp,                 mb_a,
+                     (M + kBM - 1) / kBM, (kBM * Kp / 8 * 9 + 1023) / 1024 * 1024};
+    return launch_panel(pa, RhsMX<64>{rm8, re8, rx8, N, N, N, Kp, mb_b}, c, N,
+                        stream);
+  }
+  LhsMX a{};
+  if (!lhs_mx(a, lm, le, lx, M, Kp, mb_a)) return (int)cudaErrorInvalidValue;
+  auto go = [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    RhsBF16<BN> b{};
+    if (rs == nullptr || !encode_bf16(&b.tmap, rs, Kp, N, Kp, kBK, BN)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const long long units = (long long)N * (Kp / mx::kBlock);
+    rhs_stage_kernel<<<(unsigned)((units + kRhsStageThreads - 1) /
+                                  kRhsStageThreads),
+                       kRhsStageThreads, 0, s>>>(rm8, re8, rx8, mb_b,
+                                                 (__nv_bfloat16*)rs, N, Kp);
+    return launch_mx(make_gemm<BN>(a, b, c, M, N, Kp, split, chunk, ws), s);
+  };
+  return narrow(N) ? go(std::integral_constant<int, 64>{})
+                   : go(std::integral_constant<int, 128>{});
 }
 
 // Fused: fp32 a (element (m, k) at a[m * sam + k * sak]) and fp32 b
@@ -1791,8 +2270,9 @@ extern "C" int mx_gemm_fused(const void* a, long long sam, long long sak,
   const LhsF32 la = f32_op<kBM>(a, sam, sak, M, K, mb_a);
   const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
   if (panel_path(a, sam, sak, M, N, K, split)) {
-    return launch_panel(a, M, K, mb_a, f32_op<64>(b, sbn, sbk, N, K, mb_b),
-                        c, N, stream);
+    return launch_f32_panel(a, M, K, mb_a,
+                            f32_op<64>(b, sbn, sbk, N, K, mb_b), c, N,
+                            stream);
   }
   if (narrow(N)) {
     return launch(make_gemm<64>(la, f32_op<64>(b, sbn, sbk, N, K, mb_b), c,
@@ -1814,7 +2294,7 @@ extern "C" int mx_gemm_prequant(const void* a, long long sam, long long sak,
   const LhsF32 la = f32_op<kBM>(a, sam, sak, M, K, mb_a);
   const int kp = (K + mx::kBlock - 1) / mx::kBlock * mx::kBlock;
   if (panel_path(a, sam, sak, M, N, K, split)) {
-    return launch_panel(a, M, K, mb_a,
+    return launch_f32_panel(a, M, K, mb_a,
                         RhsMX<64>{(const int8_t*)rm, (const int8_t*)re,
                                   (const uint8_t*)rx, N, N, N, kp, mb_b},
                         c, N, stream);

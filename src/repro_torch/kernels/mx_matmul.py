@@ -15,6 +15,11 @@ when the launch reports an error — there is no fallback.
 ``gemm_split_plan`` is the split of long contractions that all four GEMM
 kernels share: a pure function of the GEMM's shape, so two kernels that
 compute the same product split it alike and agree bit for bit.
+``mx_path`` mirrors the kernel's choice of path (``csrc/mx_gemm.cu::
+mx_panel_path``), a pure function of the shape too: "panel" (the stem:
+whole MX lhs panels by bulk copy) or "staged" (the rhs converted once per
+GEMM into a bf16 scratch that this wrapper allocates). Both give the same
+bits.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ INT32_MAX = 2 ** 31 - 1
 TILE_M = 128  # rows of the GEMM kernel's output tile: two warpgroups of 64
 WAVE_CTAS = SMS  # one GEMM CTA an SM (its operand ring fills shared memory)
 MIN_CHUNK_BLOCKS = 32  # at least 512 of the contraction per (tile, chunk)
+SMEM_MAX = 232448  # dynamic shared memory a block can use (csrc kSmemMax)
+RHS_MX64_STAGE = 64 * 80 + 2 * 4 * 80  # bytes of RhsMX<64>'s slab
 
 
 def tile_n(n: int) -> int:
@@ -57,6 +64,25 @@ def gemm_split_plan(m: int, n: int, kp: int) -> Tuple[int, int]:
         return 1, kp
     chunk_blocks = -(-blocks // splits)
     return -(-blocks // chunk_blocks), chunk_blocks * BLOCK
+
+
+def mx_panel_fits(kp: int) -> bool:
+    """Whether panel_kernel takes an MX lhs over a contraction of kp
+    (csrc/mx_gemm.cu::mx_panel_smem): two panels of 128 rows at 1 + 2/16
+    bytes an element, each able to stage the resident rhs's slabs, the
+    tile's bf16 lhs and the resident bf16 rhs within SMEM_MAX."""
+    buf = -(-TILE_M * kp * 9 // 8 // 1024) * 1024
+    used = 2 * buf + (TILE_M + 64) * kp * 2 + 3 * 8 + 1024
+    return used <= SMEM_MAX and RHS_MX64_STAGE <= buf
+
+
+def mx_path(m: int, n: int, kp: int) -> str:
+    """The unfused kernel's path for lhs [m, kp] @ rhs [kp, n]
+    (csrc/mx_gemm.cu::mx_panel_path): "panel" with no split, n <= 64 and
+    a panel that fits (the stem); else "staged"."""
+    if gemm_split_plan(m, n, kp)[0] == 1 and n <= 64 and mx_panel_fits(kp):
+        return "panel"
+    return "staged"
 
 
 def split_chunks(kp: int, splits: int, chunk: int) -> List[Tuple[int, int]]:
@@ -99,7 +125,8 @@ def require_planes(q: MXTensor, rows: int, cols: int, what: str) -> None:
 def mx_matmul_cuda(lhs: MXTensor, rhs: MXTensor) -> torch.Tensor:
     """``lhs`` [M, Kp] quantized along K (planes [M, Kp/16], K-last) @
     ``rhs`` [Kp, N] quantized along K (planes [Kp/16, N], K-first) ->
-    fp32 [M, N] on the card."""
+    fp32 [M, N] on the card, on the path ``mx_path`` gives (with a bf16
+    [N, Kp] scratch for the staged rhs)."""
     lm, rm = lhs.mantissa, rhs.mantissa
     if lm.dim() != 2 or rm.dim() != 2 or lm.shape[1] != rm.shape[0]:
         raise ValueError(f"expected lhs [M, Kp] and rhs [Kp, N], got "
@@ -116,12 +143,16 @@ def mx_matmul_cuda(lhs: MXTensor, rhs: MXTensor) -> torch.Tensor:
     require_planes(rhs, kp // BLOCK, n, "mx_matmul_cuda rhs")
     out = torch.empty((m, n), dtype=torch.float32, device=lm.device)
     split, _ws = plan_args(m, n, gemm_split_plan(m, n, kp), lm.device)
+    staged = (torch.empty((n, kp), dtype=torch.bfloat16, device=lm.device)
+              if m * n * kp and mx_path(m, n, kp) == "staged" else None)
     lib = _mq.load()
     code = _mq.launch(
         lib.mx_gemm_mx, lm.device, lm.data_ptr(), lhs.exponent.data_ptr(),
         lhs.mx_bits.data_ptr(), MANTISSA_BITS[lhs.precision], rm.data_ptr(),
         rhs.exponent.data_ptr(), rhs.mx_bits.data_ptr(),
-        MANTISSA_BITS[rhs.precision], out.data_ptr(), m, n, kp, *split)
+        MANTISSA_BITS[rhs.precision],
+        0 if staged is None else staged.data_ptr(), out.data_ptr(), m, n, kp,
+        *split)
     _mq.check(lib, code, "mx_matmul")
     if m * n:
         _mq.count_launch("mx_matmul")

@@ -147,7 +147,7 @@ _SIGNATURES = {
     "mx_quantize_many": [_PTR, _I32, _I32, _I64, _PTR],
     "mx_dequantize_many": [_PTR, _I32, _I32, _I64, _PTR],
     "mx_gemm_mx": [_PTR, _PTR, _PTR, _I32, _PTR, _PTR, _PTR, _I32, _PTR,
-                   _I32, _I32, _I32, _I32, _I32, _PTR, _PTR],
+                   _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _PTR],
     "mx_gemm_fused": [_PTR, _I64, _I64, _I32, _PTR, _I64, _I64, _I32, _PTR,
                       _I32, _I32, _I32, _I32, _I32, _PTR, _PTR],
     "mx_gemm_prequant": [_PTR, _I64, _I64, _I32, _PTR, _PTR, _PTR, _I32,

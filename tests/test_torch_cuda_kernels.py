@@ -354,6 +354,109 @@ def test_pair_wrong_axis_dw_fails_the_typical_limit(card, shape):
     assert not bool(((wrong - plain).abs() <= typical).all())
 
 
+# (M, N, K) and the unfused kernel's path: the MX panel whole and with a
+# short last tile whose planes end off a 16-byte multiple (5 x 3 and 3 x
+# 20 bytes); the staged rhs 64 wide (two CTAs an SM) and 128 wide, short
+# and long, over several tile columns with more units than CTAs, with one
+# unit a CTA (N = 1000: planes of 1000-byte rows), split and ragged.
+UNFUSED_PATHS = [
+    ((1000, 64, 147), "panel"), ((5, 48, 33), "panel"),
+    ((4099, 64, 320), "panel"), ((1000, 64, 16), "staged"),
+    ((8, 128, 128), "staged"), ((20000, 256, 128), "staged"),
+    ((5000, 512, 128), "staged"), ((32, 1000, 128), "staged"),
+    ((1000, 64, 576), "staged"), ((20000, 128, 1152), "staged"),
+    ((1568, 512, 4608), "staged"), ((32, 1000, 512), "staged"),
+    ((40, 24, 3000), "staged"), ((300, 200, 1100), "staged")]
+
+
+@pytest.mark.parametrize("precision", ["mx4", "mx6", "mx9"])
+@pytest.mark.parametrize("shape,path", UNFUSED_PATHS, ids=str)
+def test_unfused_paths_equal_fused(card, shape, path, precision):
+    """Each path of the unfused kernel: bitwise the fused kernel, the same
+    bits on a second call, within both limits of the plain version."""
+    m, n, k = shape
+    a, b, _ = _gemm_operands(m, n, k, card, seed=m + 3 * n + k)
+    qa, qb = ops.mx_quantize(a, precision), ops.mx_quantize_rhs(b, precision)
+    assert mxm.mx_path(m, n, qa.mantissa.shape[1]) == path
+    unfused = mxm.mx_matmul_cuda(qa, qb)
+    again = mxm.mx_matmul_cuda(qa, qb)
+    fused = mxf.mx_matmul_fused_cuda(a, b, precision, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(unfused), _bits(fused))
+    assert torch.equal(_bits(unfused), _bits(again))
+    aq, bq = _qd(a, precision), _qd(b.T, precision)
+    _within_limits(unfused, ref._matmul_nt(aq, bq), aq, bq)
+
+
+def _moved(t, offset: int):
+    """A copy of ``t`` as a view ``offset`` bytes into a larger buffer."""
+    big = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
+    view = big[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("shape", [(1000, 64, 147), (640, 256, 128),
+                                   (3000, 128, 1152)], ids=str)
+def test_unfused_reads_arena_and_offset_views(card, shape):
+    """The lhs as a leaf of a grouped quantize (mantissa and planes views
+    at arena offsets), and every tensor of both operands as a view 16
+    bytes into a larger buffer: the bits of the fused kernel."""
+    m, n, k = shape
+    a, b, _ = _gemm_operands(m, n, k, card, seed=17)
+    leaves = [torch.randn((37, 100), device=card), a,
+              torch.randn((5, 16), device=card)]
+    qa = ops.mx_quantize_many(leaves, "mx6")[1]
+    assert min(t.storage_offset() for t in (
+        qa.mantissa, qa.exponent, qa.mx_bits)) > 0
+    qb = ops.mx_quantize_rhs(b, "mx6")
+    moved = [ref.MXTensor(*(_moved(t, 16) for t in (
+        q.mantissa, q.exponent, q.mx_bits)), "mx6") for q in (qa, qb)]
+    want = mxf.mx_matmul_fused_cuda(a, b, "mx6", "mx6")
+    arena = mxm.mx_matmul_cuda(qa, qb)
+    offset = mxm.mx_matmul_cuda(*moved)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(arena), _bits(want))
+    assert torch.equal(_bits(offset), _bits(want))
+
+
+def test_unfused_refuses_what_it_cannot_configure(card):
+    """A plane one byte off a 16-byte boundary: the wrapper raises, and the
+    library, called past the wrapper, refuses the launch with a CUDA
+    error; so does a staged-rhs shape given no scratch."""
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels.ref import MANTISSA_BITS
+
+    lib = mxq.load()
+    for (m, n, k), path in (((1000, 64, 147), "panel"),
+                            ((3000, 128, 1152), "staged")):
+        a, b, _ = _gemm_operands(m, n, k, card, seed=19)
+        qa, qb = ops.mx_quantize(a, "mx6"), ops.mx_quantize_rhs(b, "mx6")
+        kp = qa.mantissa.shape[1]
+        assert mxm.mx_path(m, n, kp) == path
+        bad = _moved(qa.exponent, 1)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            mxm.mx_matmul_cuda(
+                ref.MXTensor(qa.mantissa, bad, qa.mx_bits, "mx6"), qb)
+        out = torch.zeros((m, n), dtype=torch.float32, device=card)
+        scratch = torch.empty((n, kp), dtype=torch.bfloat16, device=card)
+        split = mxm.gemm_split_plan(m, n, kp)
+        for expo, rs in ((bad, scratch), (qa.exponent, None)):
+            if rs is None and path != "staged":
+                continue
+            code = mxq.launch(
+                lib.mx_gemm_mx, card, qa.mantissa.data_ptr(),
+                expo.data_ptr(), qa.mx_bits.data_ptr(), MANTISSA_BITS["mx6"],
+                qb.mantissa.data_ptr(), qb.exponent.data_ptr(),
+                qb.mx_bits.data_ptr(), MANTISSA_BITS["mx6"],
+                0 if rs is None else rs.data_ptr(), out.data_ptr(), m, n, kp,
+                *split, 0)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                mxq.check(lib, code, "mx_matmul")
+        torch.cuda.synchronize()
+        assert not bool(out.any())  # nothing was launched
+
+
 def test_reduced_resnet18_sgd_step_repeats_bitwise(card):
     """Two SGD steps of the reduced ResNet18 from the same weights and
     batch give the same parameters bit for bit: the convolutions' weight
