@@ -88,6 +88,17 @@ exits non-zero without printing a result:
    bitwise against the plain version, 12 attention launches per forward,
    frames/s; one MX-free SGD step of full-width ViT-B/32 with finite
    gradients (the attention's plain backward on the card).
+9. modes   — the engine's other modes through ``CLSystemSpec(...).build()``
+   → ``run``, each session twice and bit for bit the same: the phase-4
+   session under concurrent dispatch (every phase charged max(t_TSA,
+   t_BSA); one quantize and one dequantize launch per fill, no plain
+   call); the same on ``forced_row_mesh(2)`` with DC-ST-Online, each
+   partition change logged; the ViT pair under concurrent dispatch with
+   labeling microbatched at 64 (attention launches, no plain call); then
+   at full width the synchronous API: ``LabelingKernel.label`` of
+   WideResNet50 on 128 frames, whole and microbatched at 32 (ids equal
+   but for near ties), ``InferenceKernel.predict`` of ResNet18 at batch
+   32, frames/s beside the card's ``nvidia-smi`` line.
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -259,14 +270,16 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def session_run(student, teacher):
+def session_run(student, teacher, observer=None, **spec):
     """One repeatable run of the main path: a fresh ``CLSystemSpec(student,
-    teacher, "dacapo-spatiotemporal", apply_mx=True).build()`` and a fresh
+    teacher, "dacapo-spatiotemporal", apply_mx=True, **spec).build()`` (the
+    keywords of ``spec`` override these) and a fresh
     ``np.random.default_rng(0)``, teacher and student pretrained on the
     device, then 45 s of virtual time over S1 (launch counts and
     kernel_stats set to 0 just before the run). Returns the session, the
     stream, the result, the run's host wall seconds and the pretraining's,
-    the run's serving-copy fills, and its launch counts and kernel_stats."""
+    the run's serving-copy fills, and its launch counts and kernel_stats.
+    ``observer(session, record)``, if given, sees every phase record."""
     import numpy as np
     import torch
 
@@ -276,9 +289,9 @@ def session_run(student, teacher):
     from repro_torch.kernels import ops
 
     stream = DriftStream(scenario("S1", 3), seed=5, img=24)
-    session = CLSystemSpec(student=student, teacher=teacher,
-                           allocator="dacapo-spatiotemporal", apply_mx=True,
-                           device="cuda").build()
+    spec = {"allocator": "dacapo-spatiotemporal", "apply_mx": True,
+            "device": "cuda", **spec}
+    session = CLSystemSpec(student=student, teacher=teacher, **spec).build()
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     tp = pretrain_model(session.teacher, stream, 25, 32, rng)
@@ -291,7 +304,9 @@ def session_run(student, teacher):
     mxq.reset_launch_counts()
     ops.reset_kernel_stats()
     t0 = time.perf_counter()
-    res = session.run(stream, duration=45.0)
+    observers = () if observer is None else (
+        lambda rec: observer(session, rec),)
+    res = session.run(stream, duration=45.0, observers=observers)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (session, stream, res, wall, pretrain_s,
@@ -328,15 +343,17 @@ def run_differences(first, second) -> list:
     return diffs
 
 
-def session_phase(tag: str, student, teacher, path_kernels):
-    """Phases 4 and 8: the main path (:func:`session_run`) run twice on the
-    card, each time from a fresh build and a fresh generator; the two runs
-    must agree bit for bit (:func:`run_differences`). Every kernel of
-    ``path_kernels`` must have launched in the first run and served all
-    its calls, the quantize and dequantize kernels once per serving-copy
-    fill; the student's MX6 serving tree must equal the port's plain CPU
-    path bitwise, its logits within 1e-3. Returns the first run's launch
-    counts and kernel_stats."""
+def session_phase(tag: str, student, teacher, path_kernels, observer=None,
+                  **spec):
+    """Phases 4, 8 and 9: the main path (:func:`session_run`, with
+    ``spec``) run twice on the card, each time from a fresh build and a
+    fresh generator; the two runs must agree bit for bit
+    (:func:`run_differences`). Every kernel of ``path_kernels`` must have
+    launched in the first run and served all its calls, the quantize and
+    dequantize kernels once per serving-copy fill; the student's MX6
+    serving tree must equal the port's plain CPU path bitwise, its logits
+    within 1e-3. Returns the first run's launch counts, kernel_stats,
+    session and result, and both runs' walls."""
     import numpy as np
     import torch
 
@@ -344,7 +361,8 @@ def session_phase(tag: str, student, teacher, path_kernels):
     from repro_torch.models.registry import make_vision_model
     from repro_torch.tree import tree_leaves, tree_map
 
-    runs = [session_run(student, teacher) for _ in range(2)]
+    runs = [session_run(student, teacher, observer, **spec)
+            for _ in range(2)]
     for i, (_, _, r, wall, pre_s, fills, counts, st) in enumerate(runs):
         log(tag, f"run {i + 1}: {student.name} / {teacher.name}: pretrained "
             f"teacher 25x32 + student 15x32 on the card in {pre_s:.2f} s; "
@@ -357,6 +375,7 @@ def session_phase(tag: str, student, teacher, path_kernels):
                              + "; ".join(diffs))
     log(tag, "the two runs agree bit for bit: phase logs, drift events, "
         "average accuracy, student parameters, launch counts")
+    walls = [run[3] for run in runs]
     session, stream, res, _, _, fills, launches, stats = runs[0]
     del runs
     for op in path_kernels:
@@ -394,7 +413,7 @@ def session_phase(tag: str, student, teacher, path_kernels):
     log(tag, "MX6 serving tree bitwise equal to the CPU plain path; "
         f"student logits max |card - CPU| = {diff:.3g} (tolerance 1e-3, "
         "fp32 summation order)")
-    return launches, stats
+    return launches, stats, session, res, walls
 
 
 def full_width_serve(tag: str, cfg, params, x, est, inference: bool):
@@ -798,7 +817,7 @@ def vit_phase(est, x):
     from repro_torch.models.registry import make_vision_model
     from repro_torch.tree import tree_leaves, tree_map
 
-    launches, stats = session_phase(
+    launches, stats, *_ = session_phase(
         "vit", VIT_B32, VIT_B16,
         ("mx_quantize", "mx_dequantize", "flash_attention"))
     if stats["flash_attention"] != {"cuda": launches["flash_attention"]}:
@@ -863,6 +882,213 @@ def vit_phase(est, x):
         f"{float(loss):.4f}, every gradient finite, {step_s:.3f} s host wall "
         f"(first step), {VIT_B32.num_layers} attention launches")
     return launches, full_launches
+
+
+def concurrent_clock(tag: str, res) -> None:
+    """Every phase of a concurrent session ends at max(t_TSA, t_BSA) past
+    its start, within the float rounding of the clock's additions
+    (1e-12 of the phase-end time)."""
+    worst, tsa_bound = 0.0, 0
+    for rec in res.records:
+        err = abs((rec.t - rec.phase_start) - max(rec.t_tsa, rec.t_bsa))
+        if not err <= 1e-12 * rec.t:
+            raise AssertionError(f"{tag}: phase {rec.index} took "
+                                 f"{rec.t - rec.phase_start!r} s, not "
+                                 f"max({rec.t_tsa!r}, {rec.t_bsa!r})")
+        worst = max(worst, err)
+        tsa_bound += rec.t_tsa >= rec.t_bsa
+    log(tag, f"each of {len(res.records)} phases took max(t_TSA, t_BSA) "
+        f"(largest difference {worst:.3g} s, limit 1e-12 of t); T-SA bound "
+        f"in {tsa_bound}, B-SA in {len(res.records) - tsa_bound}; "
+        f"speculation hits {sum(r.spec_hits for r in res.records)}, misses "
+        f"{sum(r.spec_misses for r in res.records)}")
+
+
+def sync_api_full_width(est):
+    """Phase 9, part 4: the synchronous API at full width (224 px, 1000
+    classes, random weights, MX6 serving copies through the kernels).
+    ``LabelingKernel.label`` of WideResNet50 on 128 host frames, whole and
+    with ``microbatch=32``: the ids must agree except on frames whose top
+    two logits lie within twice that frame's logit difference between the
+    two calls, and the largest logit difference must stay within 1e-3 of
+    the largest logit (fp32 summation order: the convolutions' algorithms
+    may differ by batch size). ``InferenceKernel.predict`` of ResNet18 at
+    batch 32, on its MX6 serving copy. Frames/s of each, host frames in
+    and host ids out, medians of 3 calls. Returns the launch counts and
+    kernel_stats of the calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+    from repro_torch.core.kernel import InferenceKernel, LabelingKernel
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import make_vision_model
+
+    px = WIDERESNET50.img_size
+    frames = np.random.default_rng(2).normal(
+        size=(128, px, px, 3)).astype(np.float32)
+    gen = torch.Generator().manual_seed(9)
+    teacher = make_vision_model(WIDERESNET50, "cuda")
+    student = make_vision_model(RESNET18, "cuda")
+    t_params, s_params = teacher.init(gen), student.init(gen)
+    lab = LabelingKernel(teacher, WIDERESNET50, est, apply_mx=True,
+                         device="cuda")
+    inf = InferenceKernel(student, RESNET18, est, apply_mx=True,
+                          device="cuda")
+    torch.cuda.synchronize()
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    whole = lab.label(t_params, frames, "mx6")
+    micro = lab.label(t_params, frames, "mx6", microbatch=32)
+    # predict serves the tree it is given: the session's UpdateWeight.
+    s_serving = inf.serving_params(s_params, "mx6")
+    pred = inf.predict(s_serving, frames[:32])
+    torch.cuda.synchronize()
+    launches, stats = mxq.launch_counts(), ops.kernel_stats()
+    for op in ("mx_quantize", "mx_dequantize"):
+        if launches[op] != 2 or stats[op] != {"cuda": 2}:
+            raise AssertionError(f"full-width sync API: {op} launched "
+                                 f"{launches[op]} times, kernel_stats "
+                                 f"{stats[op]}: expected one fill of each "
+                                 "kernel's serving copy")
+    if lab.n_apply_calls != 1 + 4 or inf.n_apply_calls != 1:
+        raise AssertionError(f"forwards: label {lab.n_apply_calls}, "
+                             f"predict {inf.n_apply_calls}")
+    if (whole.shape != (128,) or pred.shape != (32,)
+            or not isinstance(whole, np.ndarray)
+            or not ((0 <= pred) & (pred < RESNET18.num_classes)).all()):
+        raise AssertionError(f"bad ids: {whole.shape}, {pred.shape}")
+    serving = lab.serving_cache.get(t_params, "mx6")
+    with torch.no_grad():
+        lg_whole = lab._run_apply(serving, frames)
+        lg_micro = torch.cat([lab._run_apply(serving, frames[i: i + 32])
+                              for i in range(0, 128, 32)])
+    if not bool(torch.isfinite(lg_whole).all()):
+        raise AssertionError("WideResNet50 logits not finite")
+    if not np.array_equal(whole, lg_whole.argmax(-1).cpu().numpy()):
+        raise AssertionError("label ids != argmax of the same forward")
+    delta = (lg_whole - lg_micro).abs()
+    scale = float(lg_whole.abs().max())
+    max_diff = float(delta.max())
+    if not max_diff <= 1e-3 * max(1.0, scale):
+        raise AssertionError(f"whole vs microbatched logits differ by "
+                             f"{max_diff} (largest logit {scale})")
+    top2 = lg_whole.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    limit = 2 * delta.max(-1).values.cpu().numpy()
+    differ = whole != micro
+    if (differ & (gap > limit)).any():
+        raise AssertionError(f"{int(differ.sum())} label ids differ "
+                             "between whole and microbatched labeling "
+                             "where the top two logits are apart")
+    log("modes", f"full width, sync API: wideresnet50 label() ids equal "
+        f"whole and microbatched (32) on {128 - int(differ.sum())} of 128 "
+        f"frames, {int(differ.sum())} excused as near ties; logits max "
+        f"|whole - microbatched| {max_diff:.3g} (largest logit "
+        f"{scale:.3g}; limit 1e-3 of it); resnet18 predict() at batch 32; "
+        f"launches {launches}, kernel_stats {stats}")
+
+    def fps(fn, n: int) -> float:
+        fn()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()  # returns host ids: synchronised
+            walls.append(time.perf_counter() - t0)
+        return n / float(np.median(walls))
+
+    rates = {
+        "wideresnet50 label, 128 frames": fps(
+            lambda: lab.label(t_params, frames, "mx6"), 128),
+        "wideresnet50 label, 128 frames, microbatch 32": fps(
+            lambda: lab.label(t_params, frames, "mx6", microbatch=32), 128),
+        "resnet18 predict, 32 frames": fps(
+            lambda: inf.predict(s_serving, frames[:32]), 32),
+    }
+    log("modes", "frames/s (host frames in, host ids out, median of 3): "
+        + "; ".join(f"{k} {v:.1f}" for k, v in rates.items())
+        + f" | {nvidia_smi_line()}")
+    return launches, stats
+
+
+def modes_phase(est):
+    """Phase 9: the engine's other modes on the card, through
+    ``CLSystemSpec(...).build()`` → ``run`` (each session twice from a
+    fresh build and generator, bit for bit, as phases 4 and 8): the phase-4
+    ResNet session under concurrent dispatch; the same on
+    ``forced_row_mesh(2)`` with DC-ST-Online (each partition change
+    logged); the ViT pair under concurrent dispatch (labeling microbatched
+    at 64); then the synchronous API at full width
+    (:func:`sync_api_full_width`). Returns each part's launch counts."""
+    from repro_torch.configs.dacapo_pairs import (RESNET18, VIT_B16, VIT_B32,
+                                                  WIDERESNET50)
+    from repro_torch.core.partition import forced_row_mesh
+
+    mx_ops = ("mx_quantize", "mx_dequantize")
+    counts = {}
+    launches, _, session, res, walls = session_phase(
+        "modes", RESNET18, WIDERESNET50, mx_ops, dispatch="concurrent")
+    concurrent_clock("modes", res)
+    counts["concurrent"] = launches
+    log("modes", f"resnet pair, concurrent: walls {walls[0]:.2f} / "
+        f"{walls[1]:.2f} s, launches {launches}")
+
+    seen = []
+    mesh = forced_row_mesh(2)
+    launches, _, session, res, walls = session_phase(
+        "modes", RESNET18, WIDERESNET50, mx_ops, dispatch="concurrent",
+        allocator="dacapo-spatiotemporal-online", mesh=mesh,
+        observer=lambda s, rec: seen.append(
+            (s, rec.index, rec.decision.rows_bsa, s._mesh_rows_bsa,
+             s.partition)))
+    concurrent_clock("modes", res)
+    counts["mesh"] = launches
+    trace = [entry[1:] for entry in seen if entry[0] is session]
+    seen.clear()
+    part = session.partition
+    log("modes", f"mesh {mesh.devices.shape} of {list(mesh.devices.flat)}: "
+        f"at construction rows_bsa {session.r_bsa} of "
+        f"{session.estimator.total_rows} -> mesh split "
+        f"{session._mesh_split(session.r_bsa)} (T-SA "
+        f"{part.t_devices.shape}, B-SA {part.b_devices.shape}); inference "
+        f"on {session.inference._device}, labeling on "
+        f"{session.labeling._device}, retraining on "
+        f"{session.retrain._device}")
+    refissions, last = 0, trace[0][3] if trace else None
+    for index, rows_bsa, split, partition in trace:
+        if partition is not last:
+            refissions += 1
+            log("modes", f"phase {index}: rows_bsa {rows_bsa} -> mesh split "
+                f"{split} (re-fission)")
+        last = partition
+    moved = sorted({rows_bsa for _, rows_bsa, _, _ in trace})
+    if refissions == 0:
+        log("modes", f"no re-fission in {len(trace)} phases: the decisions' "
+            f"rows_bsa took {moved}, and on a 2-row mesh _mesh_split maps "
+            "every B-SA share of 1..15 of 16 rows to 1 mesh row "
+            f"({[session._mesh_split(r) for r in moved]})")
+    log("modes", f"mesh, dc-st-online, concurrent: walls {walls[0]:.2f} / "
+        f"{walls[1]:.2f} s, launches {launches}")
+
+    launches, stats, session, res, walls = session_phase(
+        "modes", VIT_B32, VIT_B16, mx_ops + ("flash_attention",),
+        dispatch="concurrent")
+    concurrent_clock("modes", res)
+    if session._label_microbatch != 64:
+        raise AssertionError(f"labeling microbatch "
+                             f"{session._label_microbatch}, expected 64")
+    if stats["flash_attention"] != {"cuda": launches["flash_attention"]}:
+        raise AssertionError(f"attention calls {stats['flash_attention']} "
+                             f"!= launches {launches['flash_attention']}")
+    counts["vit_concurrent"] = launches
+    log("modes", f"vit pair, concurrent, labeling microbatched at 64: "
+        f"flash_attention launches {launches['flash_attention']}, "
+        f"kernel_stats {stats['flash_attention']} (no plain call); walls "
+        f"{walls[0]:.2f} / {walls[1]:.2f} s")
+
+    counts["full_width_sync"], _ = sync_api_full_width(est)
+    return counts
 
 
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
@@ -1403,8 +1629,8 @@ def main() -> None:
     del trees
 
     # ----------------------------------------------------------- 4 session
-    launches, _ = session_phase("session", RESNET18, WIDERESNET50,
-                                ("mx_quantize", "mx_dequantize"))
+    launches, *_ = session_phase("session", RESNET18, WIDERESNET50,
+                                 ("mx_quantize", "mx_dequantize"))
 
     # -------------------------------------------------------- 5 full width
     est = DaCapoEstimator()
@@ -1435,6 +1661,12 @@ def main() -> None:
     vit_launches, vit_full_launches = vit_phase(est, x)
     log("vit", f"phase done in {time.perf_counter() - t0:.2f} s")
 
+    # ------------------------------------------------------------- 9 modes
+    t0 = time.perf_counter()
+    del x
+    mode_launches = modes_phase(est)
+    log("modes", f"phase done in {time.perf_counter() - t0:.2f} s")
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -1449,6 +1681,8 @@ def main() -> None:
             "library_ms": None, "shape": biggest["shape"],
             "precision": "mx6", "launches_full_width": full_launches[name],
             "launches_per_fill": 1,
+            "launches_modes": {part: counts[name]
+                               for part, counts in mode_launches.items()},
             "trees": [{key: row[key] for key in (
                 "tree", "leaves", "elements", "launches", "bound_ms",
                 "q_ms" if name == "mx_quantize" else "dq_ms") if key in row}
@@ -1465,6 +1699,8 @@ def main() -> None:
         "shape": main_case["shape_b_sq_skv_h_kv_d"],
         "precision": main_case["dtype"],
         "launches_full_width": vit_full_launches["flash_attention"],
+        "launches_modes": {"vit_concurrent": mode_launches[
+            "vit_concurrent"]["flash_attention"]},
         "cases": attention_rows})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """The CL system: MX serving precision, Algorithm 1 allocation policies,
-the three CL kernels, the estimator and the CLSession engine behind the
-CLSystemSpec front door."""
+the three CL kernels, mesh spatial partitioning, the estimators and the
+CLSession engine behind the CLSystemSpec front door."""
 from repro_torch.core.allocation import (  # noqa: F401
     ALLOCATORS,
     AllocationDecision,
@@ -14,6 +14,11 @@ from repro_torch.core.allocation import (  # noqa: F401
     SpatiotemporalAllocator,
     make_allocator,
 )
+# ``SCHEDULERS`` is the legacy alias for the allocator registry; imported
+# from allocation (not the deprecated core.scheduler shim) so importing
+# repro_torch.core stays warning-free.
+from repro_torch.core.allocation import ALLOCATORS as SCHEDULERS  # noqa: F401
+from repro_torch.core.cl_system import ContinuousLearningSystem  # noqa: F401
 from repro_torch.core.decision import (  # noqa: F401
     Decision,
     SpatialPlan,
@@ -29,10 +34,12 @@ from repro_torch.core.dispatch import (  # noqa: F401
 )
 from repro_torch.core.estimator import (  # noqa: F401
     DaCapoEstimator,
+    TPUEstimator,
     spatial_allocation,
 )
 from repro_torch.core.kernel import (  # noqa: F401
     InferenceKernel,
+    Kernel,
     LabelingKernel,
     RetrainKernel,
     ServingParamsCache,
@@ -42,7 +49,11 @@ from repro_torch.core.mx import (  # noqa: F401
     PrecisionPolicy,
     mx_dense,
 )
-from repro_torch.core.partition import SpatialPartition  # noqa: F401
+from repro_torch.core.partition import (  # noqa: F401
+    RowMesh,
+    SpatialPartition,
+    partition_mesh,
+)
 from repro_torch.core.sample_buffer import SampleBuffer  # noqa: F401
 from repro_torch.core.session import (  # noqa: F401
     CLResult,

@@ -16,6 +16,7 @@ items 7-8); ``make_allocator`` raises on their names.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Tuple, Type
 
 from repro_torch.configs.dacapo_pairs import VisionConfig
@@ -95,7 +96,8 @@ class PhaseFeedback:
 class AllocationPolicy:
     """Base policy: fixed Table-I temporal budgets, offline spatial split.
     Subclasses override :meth:`next_decision` (and optionally
-    ``pace_window_s``)."""
+    ``pace_window_s``). ``initial_plan``/``next_phase`` are deprecated
+    aliases kept for the legacy scheduler API (core/scheduler.py)."""
 
     name = "base"
     pace_window_s: Optional[float] = None
@@ -155,6 +157,23 @@ class AllocationPolicy:
             return feedback.drifted
         return self.observe_drift(feedback.acc_label, feedback.acc_valid,
                                   feedback.t)
+
+    # ------------------------------------------------- legacy scheduler API
+    def initial_plan(self) -> AllocationDecision:
+        warnings.warn(
+            "AllocationPolicy.initial_plan() is deprecated; use "
+            "initial_decision() (or the two-plane Decision API via "
+            ".split())", DeprecationWarning, stacklevel=2)
+        return self.initial_decision()
+
+    def next_phase(self, acc_valid: float, acc_label: float,
+                   t: float) -> AllocationDecision:
+        warnings.warn(
+            "AllocationPolicy.next_phase() is deprecated; use "
+            "next_decision(PhaseFeedback(...)) (or the two-plane Decision "
+            "API via .split())", DeprecationWarning, stacklevel=2)
+        return self.next_decision(
+            PhaseFeedback(acc_valid=acc_valid, acc_label=acc_label, t=t))
 
 
 class SpatiotemporalAllocator(AllocationPolicy):

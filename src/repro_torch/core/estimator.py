@@ -1,11 +1,21 @@
-"""The performance estimator feeding the resource allocator (paper §IV
-step 2) — the DaCapo half of the JAX package's ``core/estimator.py``.
+"""Performance estimators feeding the resource allocator (paper §IV step
+2) — the single-stream half of the JAX package's ``core/estimator.py``.
 
-``DaCapoEstimator`` models the paper's accelerator: an R x 16 array of
-DPEs at 500 MHz, each computing one 16-wide dot product in 1 (MX4) / 4
-(MX6) / 16 (MX9) cycles (§V-B), with output-stationary tiling and pipeline
-fill. Its seconds drive the session's virtual clock; the arithmetic is the
-reference's, float for float.
+Two model backends, whose seconds drive the session's virtual clock; the
+arithmetic of both is the reference's, float for float:
+
+* ``DaCapoEstimator`` — the paper's accelerator: an R x 16 array of DPEs at
+  500 MHz, each computing one 16-wide dot product in 1 (MX4) / 4 (MX6) /
+  16 (MX9) cycles (§V-B), with output-stationary tiling and pipeline fill.
+* ``TPUEstimator`` — the reference's roofline model of a TPU chip, whose
+  resources are chips instead of DPE rows, or shares of one device in
+  ``fractional_rows`` mode (the paper's Jetson Orin baselines subclass it
+  with their own constants).
+
+``TPU_PEAK_FLOPS``, ``TPU_HBM_BW`` and ``TPU_ICI_BW`` are copied from the
+reference (``src/repro/core/estimator.py:35-39``) as inputs to that cost
+model, so that the port's virtual clock equals the reference's. They are
+not measurements of anything the port runs on.
 """
 from __future__ import annotations
 
@@ -17,6 +27,11 @@ from repro_torch.configs.dacapo_pairs import VisionConfig
 from repro_torch.models.resnet import block_plan
 
 MX_CYCLES = {"mx4": 1, "mx6": 4, "mx9": 16}
+
+# The reference's cost-model constants (per chip), copied for parity.
+TPU_PEAK_FLOPS = 197e12
+TPU_HBM_BW = 819e9
+TPU_ICI_BW = 50e9
 
 
 def vision_gemms(cfg: VisionConfig,
@@ -92,6 +107,44 @@ class DaCapoEstimator:
 
     def inference_fps(self, cfg: VisionConfig, rows: int,
                       precision: str) -> float:
+        return 1.0 / self.forward_time(cfg, rows, precision, batch=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPUEstimator:
+    """The reference's roofline cost model; ``rows`` == chips for the
+    allocator.
+
+    ``fractional_rows`` switches the meaning of ``rows`` from whole chips
+    (peak scales linearly with row count) to fractions of a single fixed
+    device (peak scales with rows/total_rows) — the mode device-sharing
+    estimators like the paper's Jetson Orin model use.
+    """
+
+    total_rows: int = 1  # chips available to the CL system
+    peak_flops: float = TPU_PEAK_FLOPS
+    hbm_bw: float = TPU_HBM_BW
+    fractional_rows: bool = False
+    mx_speedup = {"mx4": 4.0, "mx6": 2.0, "mx9": 1.0}  # bandwidth-side gain
+
+    def _units(self, rows: int) -> float:
+        return rows / self.total_rows if self.fractional_rows else rows
+
+    def forward_time(self, cfg: VisionConfig, rows: int, precision: str,
+                     batch: int = 1) -> float:
+        flops = sum(2 * m * n * k for m, n, k in vision_gemms(cfg, batch))
+        bytes_moved = sum(m * k + k * n + m * n
+                          for m, n, k in vision_gemms(cfg, batch)) * 4
+        bytes_moved /= self.mx_speedup[precision]
+        units = self._units(rows)
+        t_c = flops / (units * self.peak_flops)
+        t_m = bytes_moved / (units * self.hbm_bw)
+        return max(t_c, t_m)
+
+    def train_step_time(self, cfg, rows, precision, batch):
+        return 3.0 * self.forward_time(cfg, rows, precision, batch)
+
+    def inference_fps(self, cfg, rows, precision):
         return 1.0 / self.forward_time(cfg, rows, precision, batch=1)
 
 

@@ -6,19 +6,25 @@ the single-stream part of the JAX package's ``core/kernel.py``.
 * ``RetrainKernel``    — student SGD on the sample buffer, T-SA.
 
 Each kernel owns its model's forward, its MX serving copy, its
-virtual-clock cost on the estimator, and its ``device``. The ``*_async``
-methods return device tensors without a host sync (CUDA runs on while the
-host issues the next program); the session collects at the phase barrier.
-With ``apply_mx``, serving copies are MX quantized through
-``ServingParamsCache`` → ``core/mx.py`` → ``kernels/ops.py``: on the card
-every weight leaf goes through the hand-written quantize and dequantize
-kernels.
+virtual-clock cost on the estimator, its ``device`` and, when a partition
+that is not time-shared is bound, its sub-mesh, onto whose first device it
+stages its inputs. The ``*_async`` methods return device tensors without a
+host sync (CUDA runs on while the host issues the next program); the
+session collects at the phase barrier, and ``predict`` / ``label`` are the
+host-returning wrappers for callers outside the hot path. Every inference
+or labeling forward adds one to ``n_apply_calls``. With ``apply_mx``,
+serving copies are MX quantized through ``ServingParamsCache`` →
+``core/mx.py`` → ``kernels/ops.py``: on the card a whole tree goes through
+one launch of the hand-written quantize kernel and one of the dequantize
+kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import (List, Optional, Protocol, Sequence, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -27,7 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.dacapo_pairs import VisionConfig
 from repro_torch.core import mx as mx_lib
 from repro_torch.core.partition import SpatialPartition
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.tree import tree_map
 
 
@@ -100,15 +106,22 @@ class ServingParamsCache:
         with self._lock:
             self.fills += 1
 
-    def get(self, params, precision: str):
+    def get(self, params, precision: str, quantize=None):
         """The fake-quant fp32 serving tree: fill the resident quantized
         copy (once per key), dequantize it lazily (once per key) —
-        bit-identical to ``quantize_tree(params, precision)``."""
+        bit-identical to ``quantize_tree(params, precision)``. A custom
+        ``quantize(params, precision)`` callable's return value is stored
+        as the served tree instead (a test and bench hook); the fill is
+        counted all the same."""
         slot = self._claim(params, precision)
         with slot.lock:
             if slot.quantized is None and slot.value is None:
                 self._count_fill()
-                slot.quantized = mx_lib.quantize_tree_mx(params, precision)
+                if quantize is not None:
+                    slot.value = quantize(params, precision)
+                else:
+                    slot.quantized = mx_lib.quantize_tree_mx(params,
+                                                             precision)
             if slot.value is None:
                 slot.value = mx_lib.dequantize_tree_mx(slot.quantized)
             return slot.value
@@ -139,10 +152,25 @@ class ServingParamsCache:
                     "entries": len(self._entries)}
 
 
+@runtime_checkable
+class Kernel(Protocol):
+    """What the engine requires of a kernel."""
+
+    name: str
+    role: str  # "t_sa" | "b_sa" — which sub-accelerator it runs on
+
+    def bind_partition(self, partition: SpatialPartition) -> None:
+        """Adopt a sub-mesh placement (no-op when time-shared)."""
+
+    def time_per_sample(self, rows: int, precision: str) -> float:
+        """Virtual-clock seconds per sample at the given row count."""
+
+
 class _PlacedKernel:
-    """Shared logic: the kernel's device, staging of host inputs onto it,
-    and the spatial-plane view of the cost methods (each kernel reads its
-    own rows by ``role`` and precision by ``precision_field``)."""
+    """Shared logic: the kernel's device and sub-mesh, staging of host
+    inputs onto the bound device, and the spatial-plane view of the cost
+    methods (each kernel reads its own rows by ``role`` and precision by
+    ``precision_field``)."""
 
     role = "t_sa"
     precision_field = "retraining"
@@ -151,6 +179,9 @@ class _PlacedKernel:
         self.model = model
         self.device = model.device if device is None else resolve_device(
             device)
+        self.submesh = None
+        self._device = None  # the sub-mesh's first device, when bound
+        self.n_apply_calls = 0  # forwards issued (tests and benches)
 
     def plan_rows(self, spatial, role: Optional[str] = None) -> int:
         role = role or self.role
@@ -165,17 +196,35 @@ class _PlacedKernel:
                                     self.plan_precision(spatial))
 
     def bind_partition(self, partition: SpatialPartition) -> None:
-        if not partition.time_shared:
-            raise NotImplementedError(
-                "sub-accelerator placement is not ported yet (ROADMAP "
-                "Queue 1, item 6: multi-GPU fission)")
+        """Time-shared: no placement. Otherwise the kernel takes its role's
+        sub-mesh and stages onto that mesh's first device."""
+        if partition.time_shared:
+            self.submesh, self._device = None, None
+            return
+        self.submesh = (partition.b_sa if self.role == "b_sa"
+                        else partition.t_sa)
+        self._device = (None if self.submesh is None
+                        else self.submesh.devices.flat[0])
 
     def _put(self, x, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+        dev = self.device if self._device is None else self._device
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    def _placed(self, params):
+        """The model and ``params`` on the bound device: moved there with
+        ``.to()`` where it is not the model's own (never on a host whose
+        mesh repeats one card)."""
+        dev = self._device
+        if dev is None or same_device(dev, self.model.device):
+            return self.model, params
+        return (dataclasses.replace(self.model, device=dev),
+                tree_map(lambda p: p.to(dev), params))
 
     def _run_apply(self, params, x) -> torch.Tensor:
+        self.n_apply_calls += 1
+        model, params = self._placed(params)
         with torch.no_grad():
-            return self.model.apply(params, self._put(x))
+            return model.apply(params, self._put(x))
 
 
 class InferenceKernel(_PlacedKernel):
@@ -212,6 +261,9 @@ class InferenceKernel(_PlacedKernel):
     def predict_async(self, params, x) -> torch.Tensor:
         """Class ids as a device tensor — no host sync."""
         return torch.argmax(self._run_apply(params, x), -1)
+
+    def predict(self, params, x) -> np.ndarray:
+        return self.predict_async(params, x).cpu().numpy()
 
     def predict_batched(self, params,
                         windows: Sequence[np.ndarray]) -> List[torch.Tensor]:
@@ -273,6 +325,10 @@ class LabelingKernel(_PlacedKernel):
             return torch.cat(parts)
         return torch.argmax(self._run_apply(params, x), -1)
 
+    def label(self, params, x, precision: str,
+              microbatch: Optional[int] = None) -> np.ndarray:
+        return self.label_async(params, x, precision, microbatch).cpu().numpy()
+
     def serving_quantized(self, params, precision: str):
         """The teacher's RESIDENT quantized copy (see
         :meth:`InferenceKernel.serving_quantized`)."""
@@ -328,7 +384,9 @@ class RetrainKernel(_PlacedKernel):
         self.invalidates: Tuple[ServingParamsCache, ...] = ()
 
     def _sgd_step(self, params, opt, x: torch.Tensor, y: torch.Tensor):
-        return sgd_momentum_step(self.model, params, opt, x, y, self.hp.lr)
+        model, params = self._placed(params)
+        _, opt = self._placed(opt)
+        return sgd_momentum_step(model, params, opt, x, y, self.hp.lr)
 
     def init_state(self, params):
         return tree_map(torch.zeros_like, params)

@@ -13,10 +13,14 @@ The engine is policy-free: it executes the two-plane
 :class:`~repro_torch.core.allocation.AllocationPolicy` emits, through the
 dispatch layer (core/dispatch.py: programs issued asynchronously, host
 values collected at the phase-end barrier) and the data plane
-(data/pipeline.py), and reports ``PhaseFeedback`` back.
+(data/pipeline.py), and reports ``PhaseFeedback`` back. When constructed
+with a ``mesh`` (a :class:`~repro_torch.core.partition.RowMesh`), the
+engine fissions it into T-SA / B-SA sub-meshes with
+:func:`~repro_torch.core.partition.partition_mesh` and binds each kernel
+to its sub-accelerator, re-partitioning online when a decision changes the
+split; on a single device the partition degenerates to time-sharing.
 
-Not ported yet: the trace recorder (``trace=``), fleet sinks, and
-fission of several GPUs (a session given a ``mesh`` raises).
+Not ported yet: the trace recorder (``trace=``) and fleet sinks.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.core.kernel import (
 )
 from repro_torch.core.partition import (
     SpatialPartition,
+    partition_mesh,
     single_device_partition,
 )
 from repro_torch.core.sample_buffer import SampleBuffer
@@ -165,13 +170,10 @@ class CLSession:
         decision_aware_spec: bool = True,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh fission is not ported yet (ROADMAP Queue 1, item 6: "
-                "multi-GPU T-SA/B-SA placement); run without a mesh")
         self.device = resolve_device(device)
         self.hp = hp or CLHyperParams()
         self.estimator = estimator or DaCapoEstimator()
+        self.policy = precision_policy
         self.apply_mx = apply_mx_numerics
         self.eval_fps = eval_fps  # accuracy-scoring subsample rate
         self.allocator = make_allocator(allocator, self.hp, precision_policy)
@@ -220,7 +222,37 @@ class CLSession:
         # from the inference kernel's cache (the teacher never changes).
         self.retrain.invalidates = (self.inference.serving_cache,)
 
+        # Spatial partition: fission the mesh if one is given.
+        self.mesh = mesh
+        self._mesh_rows_bsa: Optional[int] = None
         self.partition: SpatialPartition = single_device_partition()
+        self._repartition(self.r_bsa)
+
+    # --------------------------------------------------------------- mesh
+    def _mesh_split(self, rows_bsa: int) -> int:
+        """Map the estimator's row split onto the mesh's leading axis. A
+        single-row mesh cannot be fissioned: 0, so that `_repartition`
+        time-shares (the paper's R=0 fallback)."""
+        n_rows = self.mesh.devices.shape[0]
+        if n_rows < 2:
+            return 0
+        frac = rows_bsa / max(1, self.estimator.total_rows)
+        return max(1, min(n_rows - 1, round(n_rows * frac)))
+
+    def _repartition(self, rows_bsa: int) -> None:
+        """(Re)fission the mesh for a row split and bind the kernels to the
+        sub-meshes. Without a mesh the partition stays time-shared; an
+        unchanged split leaves the current partition untouched."""
+        if self.mesh is None:
+            for k in self.kernels:
+                k.bind_partition(self.partition)
+            return
+        want = self._mesh_split(rows_bsa)
+        if want == self._mesh_rows_bsa:
+            return
+        self._mesh_rows_bsa = want
+        self.partition = (single_device_partition() if want == 0
+                          else partition_mesh(self.mesh, want))
         for k in self.kernels:
             k.bind_partition(self.partition)
 
@@ -314,6 +346,8 @@ class CLSession:
             spatial = self._resolve_spatial(dec)
             temporal = dec.temporal
             prec = spatial.precisions
+            if spatial.refission:  # the plane's mesh re-fission intent
+                self._repartition(spatial.rows_bsa)
             keep_frac = self.inference.plan_keep_frac(spatial, hp.fps)
             plan = self.dispatcher.begin_phase(
                 clock, pipe, decision=dec,
@@ -449,7 +483,7 @@ class CLSystemSpec:
     apply_mx: bool = True
     seed: int = 0
     eval_fps: float = 2.0
-    mesh: object = None
+    mesh: object = None  # a RowMesh to fission into T-SA / B-SA
     dispatch: str = "sequential"  # see core/dispatch.py for the semantics
     label_microbatch: Optional[int] = None
     # Speculative frame prefetch; None = follow the dispatch mode.

@@ -56,3 +56,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     set_deterministic()
     return dev
 
+
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` is the current
+    card, so it is the same as ``cuda:0`` while that card is current)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (
+        current if b.index is None else b.index)

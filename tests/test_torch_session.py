@@ -41,7 +41,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import allocation as talloc
 from repro_torch.core import estimator as test_
 from repro_torch.core.kernel import ServingParamsCache
-from repro_torch.core.session import CLSession, CLSystemSpec
+from repro_torch.core.session import CLSystemSpec
 from repro_torch.data.stream import DriftStream, scenario
 
 
@@ -172,12 +172,6 @@ def test_allocator_decisions_match_jax(name):
 def test_unported_allocators_raise(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         talloc.make_allocator(name, talloc.CLHyperParams())
-
-
-def test_session_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        CLSession(tcfg.RESNET18, tcfg.WIDERESNET50, mesh=object(),
-                  device="cpu")
 
 
 def test_serving_cache_keys_on_tree_identity(golden_setup):
