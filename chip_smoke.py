@@ -99,6 +99,25 @@ exits non-zero without printing a result:
    WideResNet50 on 128 frames, whole and microbatched at 32 (ids equal
    but for near ties), ``InferenceKernel.predict`` of ResNet18 at batch
    32, frames/s beside the card's ``nvidia-smi`` line.
+10. trace  — the trace spine (``core/trace.py``, ``core/replay.py``):
+   phase 4's session in each dispatch mode and phase 8's ViT session,
+   each untraced and traced (``trace=True``) and bit for bit the same;
+   every recorded phase replayed bit for bit (``TraceReplayer.phase_time``
+   == the recorded end) and through ``save`` / ``load`` unchanged; the
+   from-units MAPE of the concurrent trace printed; each traced session's
+   host time by label (Σwall, Σcost, ``calibrate()``'s scale, the share of
+   the run's wall) beside the traced and untraced walls; ``dacapo-replay``
+   under concurrent dispatch at ``eval_fps=2.0`` (its own recorder, a
+   measured ``profile_cost_s`` after every phase that retrained, every
+   phase replayed bit for bit, fills through the kernels only; not held to
+   repeat: it charges host wall to its virtual clock); then one traced
+   concurrent phase at full width (224 px, random weights, MX6): the
+   ViT-B/32 and ResNet18 students' ``predict_async`` on 32 frames and the
+   ViT-B/16 and WideResNet50 teachers' ``label_async`` on 128, each
+   program's serving copy filled inside it — path "cuda" for each, 12
+   attention launches per ViT forward, ``finish()`` equal to the replayed
+   end, outputs equal to an untraced repeat, and each program's
+   ``wall_s`` beside its device time.
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -343,6 +362,19 @@ def run_differences(first, second) -> list:
     return diffs
 
 
+def fill_checks(tag: str, fills: int, launches: dict, stats: dict) -> None:
+    """One "cuda" quantize and one "cuda" dequantize launch per serving-copy
+    fill, and no call on the plain path."""
+    for op in ("mx_quantize", "mx_dequantize"):
+        if launches[op] != fills or stats.get(op) != {"cuda": fills}:
+            raise AssertionError(f"{tag}: {op} {launches[op]} launches, "
+                                 f"kernel_stats {stats.get(op)}, for {fills} "
+                                 "fills: expected one cuda launch a fill")
+    plain = {op: paths for op, paths in stats.items() if paths.get("plain")}
+    if plain:
+        raise AssertionError(f"{tag}: calls on the plain path: {plain}")
+
+
 def session_phase(tag: str, student, teacher, path_kernels, observer=None,
                   **spec):
     """Phases 4, 8 and 9: the main path (:func:`session_run`, with
@@ -384,11 +416,7 @@ def session_phase(tag: str, student, teacher, path_kernels, observer=None,
             raise AssertionError(f"{op} not served by the kernel: {served}")
         if launches[op] < 1:
             raise AssertionError(f"{op} launched no time on the main path")
-    for op in ("mx_quantize", "mx_dequantize"):
-        if launches[op] != fills or stats[op] != {"cuda": fills}:
-            raise AssertionError(f"{op}: {launches[op]} launches, "
-                                 f"kernel_stats {stats[op]}, for {fills} "
-                                 "serving-copy fills: expected one a fill")
+    fill_checks(tag, fills, launches, stats)
     log(tag, f"one quantize and one dequantize launch per serving-copy fill "
         f"({fills} fills)")
     if not res.phase_log or not np.isfinite(res.avg_accuracy):
@@ -1091,6 +1119,348 @@ def modes_phase(est):
     return counts
 
 
+def replay_checks(tag: str, trace) -> float:
+    """Phase 10: every phase of ``trace`` replays bit for bit
+    (``TraceReplayer.phase_time`` == the recorded end) and a ``save`` /
+    ``load`` round trip gives an equal trace. Returns the MAPE (per cent)
+    of the ``from_units=True`` prediction against the recorded concurrent
+    phase times (a report, not a check; None for a sequential trace)."""
+    import tempfile
+
+    from repro_torch.core.replay import TraceReplayer
+    from repro_torch.core.trace import SessionTrace
+
+    if not trace.phases:
+        raise AssertionError(f"{tag}: the trace holds no phase")
+    rep = TraceReplayer(trace)
+    for i, ph in enumerate(trace.phases):
+        got = rep.phase_time(i)
+        if got != ph.end:
+            raise AssertionError(f"{tag}: phase {i} replays to {got!r}, "
+                                 f"recorded end {ph.end!r}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        trace.save(path)
+        if SessionTrace.load(path).as_dict() != trace.as_dict():
+            raise AssertionError(f"{tag}: save / load changed the trace")
+    if trace.phases[0].mode != "concurrent":
+        return None
+    errs = [abs(rep.predict(i, from_units=True) - ph.end) / ph.end
+            for i, ph in enumerate(trace.phases) if ph.end > 0]
+    return 100.0 * sum(errs) / len(errs)
+
+
+def host_breakdown(tag: str, trace, wall_s: float) -> dict:
+    """Phase 10: the run's host time by label — Σwall_s, Σcost_s and
+    Σunits of each label's events (programs' issue walls, the retrain
+    charge's measured fit; units are frames, samples or SGD batches), the
+    ``calibrate()`` scale Σwall/Σcost, and the share of the run's host
+    wall that each label's Σwall is; what no event covers (frame windows,
+    the score sink's forwards, fills outside programs, the phase-end
+    collect, the policy) is ``unrecorded``."""
+    from repro_torch.core.replay import TraceReplayer
+
+    cal = TraceReplayer(trace).calibrate()
+    rows = {}
+    for e in trace.events():
+        row = rows.setdefault(e.label, {"events": 0, "wall_s": 0.0,
+                                        "cost_s": 0.0, "units": 0.0})
+        row["events"] += 1
+        row["wall_s"] += e.wall_s
+        row["cost_s"] += e.cost_s
+        row["units"] += e.units
+    for label, row in rows.items():
+        row["scale"] = cal.scales.get(label)
+        row["wall_share"] = row["wall_s"] / wall_s
+    recorded = sum(row["wall_s"] for row in rows.values())
+    out = {"run_wall_s": wall_s, "labels": rows,
+           "recorded_wall_s": recorded,
+           "unrecorded_wall_s": wall_s - recorded,
+           "global_scale": cal.global_scale}
+    log("trace", f"{tag}: host time by label over a run of {wall_s:.4f} s "
+        "(label: events, Σwall s (share of the run), Σcost virtual s, "
+        "calibrate() scale, Σunits): " + "; ".join(
+            f"{label}: {row['events']}, {row['wall_s']:.4f} "
+            f"({100 * row['wall_share']:.1f} %), {row['cost_s']:.4f}, "
+            + ("-" if row["scale"] is None else f"{row['scale']:.4g}")
+            + f", {row['units']:g}"
+            for label, row in sorted(rows.items()))
+        + f"; unrecorded {out['unrecorded_wall_s']:.4f} s "
+        f"({100 * out['unrecorded_wall_s'] / wall_s:.1f} %); global scale "
+        f"{cal.global_scale:.4g}")
+    return out
+
+
+def traced_pair(tag: str, student, teacher, **spec):
+    """Phase 10, part 1: one untraced and one traced :func:`session_run` of
+    one description; they must agree bit for bit
+    (:func:`run_differences`), fills through the kernels only, and every
+    phase of the trace must replay bit for bit. Returns both runs and the
+    trace."""
+    untraced = session_run(student, teacher, **spec)
+    traced = session_run(student, teacher, trace=True, **spec)
+    diffs = run_differences(untraced, traced)
+    if diffs:
+        raise AssertionError(f"{tag}: traced != untraced: "
+                             + "; ".join(diffs))
+    session, _, res, wall, _, fills, launches, stats = traced
+    fill_checks(tag, fills, launches, stats)
+    recorder = session.dispatcher.recorder
+    if recorder is None or untraced[0].dispatcher.recorder is not None:
+        raise AssertionError(f"{tag}: recorder not as configured")
+    trace = recorder.trace
+    mape = replay_checks(tag, trace)
+    paths = {}
+    for e in trace.events():
+        if e.kind == "program":
+            paths[e.label, e.path] = paths.get((e.label, e.path), 0) + 1
+    if any(path == "plain" for _, path in paths):
+        raise AssertionError(f"{tag}: a program took the plain path: "
+                             f"{paths}")
+    log("trace", f"{tag}: traced == untraced bit for bit ({len(res.phase_log)}"
+        f" phases); every one of {len(trace.phases)} recorded phases "
+        f"replays bit for bit and survives save / load; walls untraced "
+        f"{untraced[3]:.4f} s, traced {wall:.4f} s; programs by (label, "
+        f"path) {dict(sorted(paths.items()))}; from-units MAPE "
+        + ("n/a (sequential)" if mape is None else f"{mape:.6f} %"))
+    return untraced, traced, trace, mape
+
+
+def replay_policy_run(tag: str) -> dict:
+    """Phase 10, part 3: ``dacapo-replay`` under concurrent dispatch,
+    ``eval_fps=2.0``. It charges measured host wall to its virtual clock,
+    so it is not held to repeat: it must create its own recorder, charge a
+    positive ``profile_cost_s`` after every phase that retrained (the
+    phases it re-prices), replay every phase bit for bit, and fill through
+    the kernels only."""
+    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+    from repro_torch.core.trace import TraceRecorder
+
+    session, _, res, wall, _, fills, launches, stats = session_run(
+        RESNET18, WIDERESNET50, allocator="dacapo-replay",
+        dispatch="concurrent", eval_fps=2.0)
+    recorder = session.dispatcher.recorder
+    if not isinstance(recorder, TraceRecorder) or (
+            session.allocator._trace_recorder is not recorder):
+        raise AssertionError(f"{tag}: dacapo-replay made no recorder")
+    fill_checks(tag, fills, launches, stats)
+    trace = recorder.trace
+    replay_checks(tag, trace)
+    phases = trace.phases
+    for i in range(1, len(phases)):
+        cost = phases[i].decisions[0]["profile_cost_s"]
+        rescored = any(e.label == "retrain" for e in phases[i - 1].events)
+        if (cost > 0) != rescored:
+            raise AssertionError(f"{tag}: phase {i} profile_cost_s {cost!r}"
+                                 f" after a phase that retrained: {rescored}")
+    n_t = session.hp.n_t
+    picks = [r.decision.retrain_samples for r in res.records]
+    boosts = sum(n > n_t for n in picks)
+    profile = [ph.decisions[0]["profile_cost_s"] for ph in phases]
+    log("trace", f"{tag}: {len(phases)} phases, recorder made by the "
+        f"policy; retrain samples chosen {picks} (DC-ST's base {n_t}: "
+        f"{boosts} boosted); profile_cost_s charged "
+        f"{[round(c, 6) for c in profile]} (sum {sum(profile):.6f} s); avg "
+        f"accuracy {res.avg_accuracy!r}; wall {wall:.4f} s; every phase "
+        f"replays bit for bit; {fills} fills, launches {launches}")
+    return {"phases": len(phases), "boosts": boosts,
+            "profile_cost_s": sum(profile), "avg_accuracy": res.avg_accuracy,
+            "wall_s": wall, "launches": launches}
+
+
+def full_width_trace(est, dev="cuda") -> dict:
+    """Phase 10, part 4: at full width (224 px, 1000 classes, random
+    weights, MX6 serving) one traced concurrent ``KernelDispatcher`` phase
+    issuing, per vision pair (ViT-B/32 / ViT-B/16, ResNet18 /
+    WideResNet50), the student's ``predict_async`` on 32 frames (``b_sa``,
+    "score"; its serving copy filled inside the program) and the teacher's
+    ``label_async`` on 128 frames microbatched at 64 (``t_sa``, "label"),
+    each costed by ``plan_time_per_sample`` at the offline row split, as
+    the session does. Fresh kernels each run, so every program fills its
+    serving copy. Checks: the ViT programs' path is "cuda", with 12
+    attention launches per forward; every program that filled has path
+    "cuda"; ``finish()`` equals the replayed phase end bit for bit; the
+    outputs equal an untraced repeat bit for bit. Prints each program's
+    ``wall_s`` beside its device time (CUDA events around the issue)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.dacapo_pairs import (RESNET18, VIT_B16, VIT_B32,
+                                                  WIDERESNET50)
+    from repro_torch.core.decision import SpatialPlan
+    from repro_torch.core.dispatch import KernelDispatcher
+    from repro_torch.core.estimator import spatial_allocation
+    from repro_torch.core.kernel import InferenceKernel, LabelingKernel
+    from repro_torch.core.replay import TraceReplayer
+    from repro_torch.core.trace import TraceRecorder
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import make_vision_model
+
+    pairs = ((VIT_B32, VIT_B16), (RESNET18, WIDERESNET50))
+    gen = torch.Generator().manual_seed(10)
+    weights = {cfg.name: make_vision_model(cfg, dev).init(gen)
+               for pair in pairs for cfg in pair}
+    rng = np.random.default_rng(10)
+    px = VIT_B16.img_size
+    x32, x128 = (torch.from_numpy(rng.normal(size=(n, px, px, 3)).astype(
+        np.float32)).to(dev) for n in (32, 128))
+
+    def programs():
+        out = []
+        for s_cfg, t_cfg in pairs:
+            inf = InferenceKernel(make_vision_model(s_cfg, dev), s_cfg, est,
+                                  apply_mx=True, device=dev)
+            lab = LabelingKernel(make_vision_model(t_cfg, dev), t_cfg, est,
+                                 apply_mx=True, device=dev)
+            r_tsa, r_bsa = spatial_allocation(est, s_cfg, 30.0, "mx6")
+            spatial = SpatialPlan(r_tsa, r_bsa).resolve(r_tsa, r_bsa,
+                                                        est.total_rows)
+            sp, tp = weights[s_cfg.name], weights[t_cfg.name]
+            out.append((s_cfg, inf, "b_sa", "score",
+                        lambda k=inf, p=sp: k.predict_async(
+                            k.serving_params(p, "mx6"), x32),
+                        len(x32) * inf.plan_time_per_sample(spatial),
+                        len(x32)))
+            out.append((t_cfg, lab, "t_sa", "label",
+                        lambda k=lab, p=tp: k.label_async(
+                            p, x128, "mx6", microbatch=64),
+                        len(x128) * lab.plan_time_per_sample(spatial),
+                        len(x128)))
+        return out
+
+    def run(recorder):
+        plan = KernelDispatcher("concurrent", recorder=recorder).begin_phase(
+            0.0)
+        rows = []
+        torch.cuda.synchronize()
+        for cfg, kern, role, label, thunk, cost, units in programs():
+            fills, forwards = kern.serving_cache.fills, kern.n_apply_calls
+            before = mxq.launch_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            handle = plan.dispatch(role, label, thunk, cost_s=cost,
+                                   units=units)
+            b.record()
+            after = mxq.launch_counts()
+            rows.append({
+                "program": f"{cfg.name} {label}", "cfg": cfg, "role": role,
+                "cost_s": cost, "units": units, "handle": handle,
+                "events": (a, b),
+                "fills": kern.serving_cache.fills - fills,
+                "forwards": kern.n_apply_calls - forwards,
+                "launches": {op: after[op] - before[op] for op in after
+                             if after[op] != before[op]}})
+        end = plan.finish()
+        outs = [row.pop("handle").collect() for row in rows]
+        torch.cuda.synchronize()
+        for row in rows:
+            a, b = row.pop("events")
+            row["device_ms"] = a.elapsed_time(b)
+        return end, outs, rows
+
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    recorder = TraceRecorder()
+    end, outs, rows = run(recorder)
+    launches, stats = mxq.launch_counts(), ops.kernel_stats()
+    phase = recorder.phases[0]
+    replayed = TraceReplayer(recorder.trace).phase_time(0)
+    if replayed != end or phase.end != end:
+        raise AssertionError(f"full-width trace: finish() {end!r} != "
+                             f"replayed {replayed!r}")
+    events = [e for e in phase.events if e.kind == "program"]
+    if len(events) != len(rows):
+        raise AssertionError(f"full-width trace: {len(events)} program "
+                             f"events for {len(rows)} programs")
+    for row, e in zip(rows, events):
+        cfg = row["cfg"]
+        row["wall_s"], row["path"] = e.wall_s, e.path
+        if (e.role, e.cost_s, e.units) != (row["role"], row["cost_s"],
+                                           row["units"]):
+            raise AssertionError(f"{row['program']}: event {e}")
+        if row["fills"] and e.path != "cuda":
+            raise AssertionError(f"{row['program']} filled a serving copy "
+                                 f"on path {e.path!r}")
+        if cfg.kind == "vit":
+            want = cfg.num_layers * row["forwards"]
+            if e.path != "cuda" or row["launches"].get(
+                    "flash_attention") != want:
+                raise AssertionError(f"{row['program']}: path {e.path!r}, "
+                                     f"launches {row['launches']}, expected "
+                                     f"{want} attention launches")
+        if row["fills"] and any(row["launches"].get(op) != 1 for op in (
+                "mx_quantize", "mx_dequantize")):
+            raise AssertionError(f"{row['program']}: launches "
+                                 f"{row['launches']} for one fill")
+    if any(paths.get("plain") for paths in stats.values()):
+        raise AssertionError(f"full-width trace: plain calls {stats}")
+    end2, outs2, rows2 = run(None)
+    if end2 != end or not all(np.array_equal(a, b)
+                              for a, b in zip(outs, outs2)):
+        raise AssertionError("full-width trace: traced != untraced repeat")
+    for row, row2 in zip(rows, rows2):
+        row["device_ms_untraced"] = row2["device_ms"]
+        log("trace", f"full width, {row['program']} [{row['role']}] "
+            f"{row['units']} frames: path {row['path']!r}, wall_s "
+            f"{row['wall_s']:.6f} s, device {row['device_ms']:.4f} ms "
+            f"(untraced repeat {row2['device_ms']:.4f} ms), cost_s "
+            f"{row['cost_s']:.6f}, fills {row['fills']}, forwards "
+            f"{row['forwards']}, launches {row['launches']}")
+    log("trace", f"full width: one traced concurrent phase of {len(rows)} "
+        f"programs, finish() {end!r} == replayed end; outputs equal the "
+        f"untraced repeat bit for bit; launches {launches}, kernel_stats "
+        f"{stats}")
+    return {"launches": launches, "rows": [
+        {key: row[key] for key in ("program", "role", "units", "cost_s",
+                                   "path", "wall_s", "device_ms",
+                                   "device_ms_untraced", "fills",
+                                   "forwards", "launches")}
+        for row in rows]}
+
+
+def trace_phase(est) -> dict:
+    """Phase 10: the trace spine on the card. (1) Phase 4's session in each
+    dispatch mode, traced and untraced, bit for bit the same; every phase
+    replays bit for bit, saves and loads; the from-units MAPE printed.
+    (2) The host time by label of those traced sessions and of phase 8's
+    ViT session (traced and untraced, also bit for bit the same), beside
+    the traced and untraced walls. (3) ``dacapo-replay``, concurrent
+    (:func:`replay_policy_run`). (4) The full-width traced phase
+    (:func:`full_width_trace`). Returns each part's launch counts, the
+    breakdowns and the MAPEs."""
+    from repro_torch.configs.dacapo_pairs import (RESNET18, VIT_B16, VIT_B32,
+                                                  WIDERESNET50)
+
+    out = {"launches": {}, "breakdown": {}, "mape_pct": {}, "walls": {}}
+    for tag, pair, spec in (
+            ("resnet_sequential", (RESNET18, WIDERESNET50), {}),
+            ("resnet_concurrent", (RESNET18, WIDERESNET50),
+             {"dispatch": "concurrent"}),
+            ("vit_sequential", (VIT_B32, VIT_B16), {})):
+        untraced, traced, trace, mape = traced_pair(tag, *pair, **spec)
+        out["launches"][tag] = traced[6]
+        out["mape_pct"][tag] = mape
+        out["walls"][tag] = {"untraced_s": untraced[3],
+                             "traced_s": traced[3]}
+        out["breakdown"][tag] = host_breakdown(tag, trace, traced[3])
+        if pair[0] is VIT_B32:
+            attention = traced[7].get("flash_attention", {})
+            if attention != {"cuda": traced[6]["flash_attention"]} or (
+                    not attention):
+                raise AssertionError(f"{tag}: attention {attention}")
+        del untraced, traced, trace
+    replay = replay_policy_run("replay_concurrent")
+    out["launches"]["replay_concurrent"] = replay.pop("launches")
+    out["replay"] = replay
+    full = full_width_trace(est)
+    out["launches"]["full_width"] = full["launches"]
+    out["full_width"] = full["rows"]
+    print("[trace] summary " + json.dumps(out, default=float), flush=True)
+    return out
+
+
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
 GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
     "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
@@ -1667,6 +2037,11 @@ def main() -> None:
     mode_launches = modes_phase(est)
     log("modes", f"phase done in {time.perf_counter() - t0:.2f} s")
 
+    # ------------------------------------------------------------ 10 trace
+    t0 = time.perf_counter()
+    trace_launches = trace_phase(est)["launches"]
+    log("trace", f"phase done in {time.perf_counter() - t0:.2f} s")
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -1683,6 +2058,8 @@ def main() -> None:
             "launches_per_fill": 1,
             "launches_modes": {part: counts[name]
                                for part, counts in mode_launches.items()},
+            "launches_trace": {part: counts[name]
+                               for part, counts in trace_launches.items()},
             "trees": [{key: row[key] for key in (
                 "tree", "leaves", "elements", "launches", "bound_ms",
                 "q_ms" if name == "mx_quantize" else "dq_ms") if key in row}
@@ -1701,6 +2078,8 @@ def main() -> None:
         "launches_full_width": vit_full_launches["flash_attention"],
         "launches_modes": {"vit_concurrent": mode_launches[
             "vit_concurrent"]["flash_attention"]},
+        "launches_trace": {part: trace_launches[part]["flash_attention"]
+                           for part in ("vit_sequential", "full_width")},
         "cases": attention_rows})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """The CL system: MX serving precision, Algorithm 1 allocation policies,
-the three CL kernels, mesh spatial partitioning, the estimators and the
-CLSession engine behind the CLSystemSpec front door."""
+the three CL kernels, mesh spatial partitioning, the estimators, the
+CLSession engine behind the CLSystemSpec front door, and the trace spine
+with its replayer."""
 from repro_torch.core.allocation import (  # noqa: F401
     ALLOCATORS,
     AllocationDecision,
@@ -10,6 +11,7 @@ from repro_torch.core.allocation import (  # noqa: F401
     EOMUAllocator,
     OnlineSpatiotemporalAllocator,
     PhaseFeedback,
+    ReplayAllocator,
     SpatialAllocator,
     SpatiotemporalAllocator,
     make_allocator,
@@ -33,7 +35,9 @@ from repro_torch.core.dispatch import (  # noqa: F401
     ProgramHandle,
 )
 from repro_torch.core.estimator import (  # noqa: F401
+    CalibratedEstimator,
     DaCapoEstimator,
+    PlacementCostModel,
     TPUEstimator,
     spatial_allocation,
 )
@@ -54,6 +58,11 @@ from repro_torch.core.partition import (  # noqa: F401
     SpatialPartition,
     partition_mesh,
 )
+from repro_torch.core.replay import (  # noqa: F401
+    Calibration,
+    ReplayNode,
+    TraceReplayer,
+)
 from repro_torch.core.sample_buffer import SampleBuffer  # noqa: F401
 from repro_torch.core.session import (  # noqa: F401
     CLResult,
@@ -61,4 +70,10 @@ from repro_torch.core.session import (  # noqa: F401
     CLSystemSpec,
     PhaseRecord,
     pretrain_model,
+)
+from repro_torch.core.trace import (  # noqa: F401
+    PhaseTrace,
+    SessionTrace,
+    TraceEvent,
+    TraceRecorder,
 )

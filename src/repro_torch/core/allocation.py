@@ -6,18 +6,19 @@ fresh-label accuracy, the engine-side drift flag, the virtual clock) and
 emits the decision the engine (core/session.py) executes next: a flat
 ``AllocationDecision``, the facade over the two planes of
 core/decision.py. Every behavioural difference between DaCapo-
-Spatiotemporal, DaCapo-Spatial, DC-ST-Online, Ekya and EOMU lives here,
-not in the engine loop. The virtual-clock arithmetic is the reference's,
-float for float.
+Spatiotemporal, DaCapo-Spatial, DC-ST-Online, DaCapo-Replay, Ekya and
+EOMU lives here, not in the engine loop. The virtual-clock arithmetic is
+the reference's, float for float.
 
-Not ported yet: ``FleetAllocator`` and ``dacapo-replay`` (ROADMAP Queue 1
-items 7-8); ``make_allocator`` raises on their names.
+Not ported yet: ``FleetAllocator`` (ROADMAP Queue 1, item 8);
+``make_allocator`` raises on its names.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
-from typing import Dict, Optional, Tuple, Type
+from typing import Dict, Optional, Sequence, Tuple, Type
 
 from repro_torch.configs.dacapo_pairs import VisionConfig
 from repro_torch.core.decision import Decision
@@ -101,6 +102,9 @@ class AllocationPolicy:
 
     name = "base"
     pace_window_s: Optional[float] = None
+    # Trace-scored policies set True: the session then creates a
+    # TraceRecorder (core/trace.py) and hands it over via attach_trace.
+    needs_trace = False
 
     def __init__(self, hp: CLHyperParams,
                  precision: PrecisionPolicy = DEFAULT_POLICY):
@@ -108,6 +112,13 @@ class AllocationPolicy:
         self.precision = precision
         self.detector = DriftDetector(v_thr=hp.v_thr)
         self._rows: Tuple[Optional[int], Optional[int]] = (None, None)
+        self._trace_recorder = None
+
+    def attach_trace(self, recorder) -> None:
+        """Receive the session's TraceRecorder (called at construction
+        when tracing is on; policies that do not score by replay keep it
+        unused)."""
+        self._trace_recorder = recorder
 
     # -------------------------------------------------------------- binding
     def bind(self, estimator, student_cfg: VisionConfig) -> "AllocationPolicy":
@@ -329,32 +340,93 @@ class EOMUAllocator(SpatiotemporalAllocator):
         return self._decision(self.hp.n_t if trigger else 0)
 
 
+class ReplayAllocator(SpatiotemporalAllocator):
+    """DaCapo-Replay: DC-ST with replay-scored retraining boosts.
+
+    The allocator whose profiling cost is *measured*, not assumed: each
+    phase it builds K candidate decisions (DC-ST's choice with the
+    retraining budget boosted by ``boost_factors``, quantized to SGD-batch
+    multiples and capped at the buffer capacity), prices each by
+    :meth:`~repro_torch.core.replay.TraceReplayer.predict` against the
+    just-recorded phase instead of executing it, and picks the largest
+    boost whose predicted phase time stays within ``slack_tol`` of the
+    unboosted prediction. Under concurrent dispatch that fills the T-SA
+    slack of B-SA-bound phases with extra retraining; under sequential
+    dispatch (no slack by construction) every boost extends the phase and
+    the policy degenerates to DC-ST. The host wall time the replay scoring
+    took is charged to the decision's ``profile_cost_s``, so a session
+    under this policy does not repeat bit for bit from run to run.
+
+    ``needs_trace`` makes the session create a
+    :class:`~repro_torch.core.trace.TraceRecorder` when none is configured.
+    """
+
+    name = "dacapo-replay"
+    needs_trace = True
+
+    def __init__(self, hp: CLHyperParams,
+                 precision: PrecisionPolicy = DEFAULT_POLICY,
+                 boost_factors: Sequence[float] = (3.0, 2.0, 1.5),
+                 slack_tol: float = 0.02):
+        super().__init__(hp, precision)
+        self.boost_factors = tuple(sorted(boost_factors, reverse=True))
+        self.slack_tol = slack_tol
+
+    def next_decision(self, feedback: PhaseFeedback) -> AllocationDecision:
+        from repro_torch.core.replay import TraceReplayer
+
+        base = super().next_decision(feedback)
+        recorder = self._trace_recorder
+        if recorder is None or len(recorder) == 0:
+            return base
+        phases = recorder.phases
+        last = len(phases) - 1
+        if not any(e.label == "retrain" for e in phases[last].events):
+            return base  # no retraining recorded: nothing to re-price
+        t0 = time.perf_counter()
+        replayer = TraceReplayer(recorder.trace, hp=self.hp)
+        budget = replayer.predict(last, base) * (1.0 + self.slack_tol)
+        pick = base
+        for factor in self.boost_factors:  # descending: largest fit wins
+            n = self.hp.sgd_batch * int(
+                base.retrain_samples * factor // self.hp.sgd_batch)
+            n = min(n, self.hp.c_b)
+            if n <= base.retrain_samples:
+                continue
+            cand = dataclasses.replace(base, retrain_samples=n)
+            if replayer.predict(last, cand) <= budget:
+                pick = cand
+                break
+        # The replay scoring's measured wall IS the profiling cost.
+        return dataclasses.replace(
+            pick, profile_cost_s=time.perf_counter() - t0)
+
+
 ALLOCATORS: Dict[str, Type[AllocationPolicy]] = {
     "dacapo-spatiotemporal": SpatiotemporalAllocator,
     "dacapo-spatiotemporal-online": OnlineSpatiotemporalAllocator,
     "dacapo-spatial": SpatialAllocator,
+    "dacapo-replay": ReplayAllocator,
     "ekya": EkyaAllocator,
     "eomu": EOMUAllocator,
 }
 
-# Policies of the JAX package the port does not have yet.
-_NOT_PORTED = {
-    "dacapo-replay": "ROADMAP Queue 1, item 7 (core/trace.py + replay.py)",
-    "fleet": "ROADMAP Queue 1, item 8 (core/fleet.py)",
-}
+# The fleet's policies (``"fleet"``, ``"fleet-*"``): not ported yet.
+_NOT_PORTED = {"fleet": "ROADMAP Queue 1, item 8 (core/fleet.py)"}
 
 
 def make_allocator(allocator, hp: CLHyperParams,
                    precision: PrecisionPolicy = DEFAULT_POLICY
                    ) -> AllocationPolicy:
-    """Resolve a policy from a registry name, class, or ready instance."""
+    """Resolve a policy from a registry name, class, or ready instance; a
+    fleet policy's name raises ``NotImplementedError`` (not ported yet)."""
     if isinstance(allocator, AllocationPolicy):
         return allocator
     if isinstance(allocator, str):
-        if allocator in _NOT_PORTED or allocator.startswith("fleet"):
-            item = _NOT_PORTED.get(allocator, _NOT_PORTED["fleet"])
+        if allocator.startswith("fleet"):
             raise NotImplementedError(
-                f"allocator {allocator!r} is not ported yet: {item}")
+                f"allocator {allocator!r} is not ported yet: "
+                f"{_NOT_PORTED['fleet']}")
         try:
             cls = ALLOCATORS[allocator]
         except KeyError:

@@ -1,5 +1,5 @@
 """Async kernel dispatch: the plan → dispatch → collect execution layer
-(the JAX package's ``core/dispatch.py`` without the trace recorder).
+(the single-stream part of the JAX package's ``core/dispatch.py``).
 
 The session builds a per-phase :class:`PhasePlan` and *dispatches* device
 programs through it — PyTorch launches CUDA work asynchronously, so a
@@ -24,14 +24,33 @@ Virtual-clock semantics (``dispatch=`` on ``CLSystemSpec`` / ``CLSession``):
 
 Both modes issue every program eagerly; the difference is purely in clock
 accounting, which is the reference's float arithmetic, add for add.
+
+Trace spine (core/trace.py): with a
+:class:`~repro_torch.core.trace.TraceRecorder` attached to the dispatcher
+(``CLSystemSpec(trace=...)``), every ``dispatch`` is recorded as a
+``"program"`` :class:`~repro_torch.core.trace.TraceEvent` — role, label,
+virtual cost, host wall time of the issue, the kernel path that served it
+and the unit count the cost scales with — and every bare ``charge`` as a
+``"charge"`` event, in issue order. Recording touches no numeric plan
+state, so traced runs are bit-identical to untraced ones; with no recorder
+(the default) the traced overrides reduce to one ``is None`` check and the
+untraced code path. :class:`~repro_torch.core.replay.TraceReplayer`
+replays the recorded per-role float-add sequence to reconstruct, and
+predict, phase times.
+
+Not ported yet: the fleet's lanes (``lane=`` on ``charge``,
+``dispatch_multi``, ``lane_totals``; ROADMAP Queue 1, item 8).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.trace import TraceEvent, TraceRecorder
 
 SEQUENTIAL = "sequential"
 CONCURRENT = "concurrent"
@@ -97,11 +116,21 @@ class PhasePlan:
         self._now = start  # T-SA running clock
         self._floor = start  # pacing floor on the phase end
 
+    @property
+    def traced(self) -> bool:
+        """Is a TraceRecorder observing this plan? (The engine uses this to
+        gate wall-time measurement of host-side work like retraining SGD,
+        keeping the untraced path free of even a ``perf_counter`` call.)"""
+        return False
+
     # ----------------------------------------------------------- dispatch
     def dispatch(self, role: str, label: str, issue: Callable[[], Any],
-                 cost_s: float = 0.0) -> ProgramHandle:
+                 cost_s: float = 0.0, units: float = 0.0) -> ProgramHandle:
         """Issue a device program *now* (async — the thunk must not block)
-        and charge its cost; returns a handle to ``collect()`` later."""
+        and charge its cost; returns a handle to ``collect()`` later.
+        ``units`` is the trace-facing quantity the cost was computed from
+        (frames scored, samples labeled) — ignored untraced."""
+        del units
         handle = ProgramHandle(issue())
         self.programs.append(DeviceProgram(role, label, cost_s, handle))
         self.charge(role, cost_s)
@@ -118,9 +147,14 @@ class PhasePlan:
                 "KernelDispatcher.begin_phase")
         return self.pipeline.frames(t0, t1, max_frames=max_frames, tag=tag)
 
-    def charge(self, role: str, seconds: float) -> None:
+    def charge(self, role: str, seconds: float, label: Optional[str] = None,
+               units: float = 0.0, wall_s: float = 0.0) -> None:
         """Charge virtual time without an attached program (e.g. retraining
-        SGD, whose cost is known only after the batch count is)."""
+        SGD, whose cost is known only after the batch count is).
+        ``label``/``units``/``wall_s`` annotate the charge for the trace
+        spine (kernel name, quantity the cost scales with, measured host
+        wall) — ignored untraced."""
+        del label, units, wall_s
         self.totals[role] += seconds
         if role == "t_sa":
             self._now += seconds
@@ -157,13 +191,20 @@ class KernelDispatcher:
     """Factory + bookkeeping for per-phase plans: its mode decides the
     clock semantics of every :class:`PhasePlan` it opens. The counters
     (``phases_dispatched``, ``programs_dispatched``, ``windows_fetched``,
-    ``programs_by_label``) are cumulative, for benchmarks and tests."""
+    ``programs_by_label``) are cumulative, for benchmarks and tests.
 
-    def __init__(self, mode: str = SEQUENTIAL):
+    ``recorder`` (a :class:`~repro_torch.core.trace.TraceRecorder`, default
+    None) turns on the trace spine: each ``begin_phase`` opens a
+    :class:`~repro_torch.core.trace.PhaseTrace` and the plan's traced
+    overrides record every program issue and ledger charge."""
+
+    def __init__(self, mode: str = SEQUENTIAL,
+                 recorder: Optional[TraceRecorder] = None):
         if mode not in DISPATCH_MODES:
             raise ValueError(
                 f"unknown dispatch mode {mode!r}; known: {DISPATCH_MODES}")
         self.mode = mode
+        self.recorder = recorder
         self.phases_dispatched = 0
         self.programs_dispatched = 0
         self.windows_fetched = 0
@@ -184,24 +225,72 @@ class KernelDispatcher:
                     else (decision.temporal.total_label_samples, fps))
             pipeline.begin_phase(start, label_hint=hint)
         plan = _TrackedPlan(self, self.mode, start, pipeline)
+        if self.recorder is not None:
+            plan._trace = self.recorder.begin_phase(
+                start, self.mode,
+                decisions=() if decision is None else (decision,))
         self.phases_dispatched += 1
         return plan
 
 
 class _TrackedPlan(PhasePlan):
-    """PhasePlan that feeds the dispatcher's cumulative counters."""
+    """PhasePlan that feeds the dispatcher's cumulative counters — and,
+    when the dispatcher carries a
+    :class:`~repro_torch.core.trace.TraceRecorder`, records the phase's
+    program/charge stream as :class:`~repro_torch.core.trace.TraceEvent`s.
+    Recording never touches the numeric plan state (ledgers, clock,
+    floor); with ``_trace is None`` every override falls straight through
+    to the untraced code path."""
 
     def __init__(self, dispatcher: KernelDispatcher, mode: str, start: float,
                  pipeline=None):
         super().__init__(mode, start, pipeline)
         self._dispatcher = dispatcher
+        self._trace = None  # open PhaseTrace when the dispatcher records
+        self._in_program = False  # suppress charge events inside dispatch
+
+    @property
+    def traced(self) -> bool:
+        return self._trace is not None
 
     def dispatch(self, role: str, label: str, issue: Callable[[], Any],
-                 cost_s: float = 0.0) -> ProgramHandle:
+                 cost_s: float = 0.0, units: float = 0.0) -> ProgramHandle:
         self._dispatcher.programs_dispatched += 1
         by_label = self._dispatcher.programs_by_label
         by_label[label] = by_label.get(label, 0) + 1
-        return super().dispatch(role, label, issue, cost_s)
+        tr = self._trace
+        if tr is None:
+            return super().dispatch(role, label, issue, cost_s)
+        recorder = self._dispatcher.recorder
+        before = recorder.paths_before()
+        t0 = time.perf_counter()
+        self._in_program = True
+        try:
+            handle = super().dispatch(role, label, issue, cost_s)
+        finally:
+            self._in_program = False
+        wall = time.perf_counter() - t0
+        tr.events.append(TraceEvent(
+            kind="program", role=role, label=label, cost_s=cost_s,
+            wall_s=wall, path=recorder.dominant_path(before), units=units))
+        return handle
+
+    def charge(self, role: str, seconds: float, label: Optional[str] = None,
+               units: float = 0.0, wall_s: float = 0.0) -> None:
+        super().charge(role, seconds)
+        tr = self._trace
+        if tr is not None and not self._in_program:
+            tr.events.append(TraceEvent(
+                kind="charge", role=role, label=label or "charge",
+                cost_s=seconds, wall_s=wall_s, units=units))
+
+    def finish(self) -> float:
+        end = super().finish()
+        tr = self._trace
+        if tr is not None:
+            tr.end = end
+            tr.floor = self._floor
+        return end
 
     def fetch(self, t0: float, t1: float, max_frames: int = 0,
               tag: Optional[str] = None):

@@ -1,8 +1,18 @@
 """Performance estimators feeding the resource allocator (paper §IV step
-2) — the single-stream half of the JAX package's ``core/estimator.py``.
+2) — the JAX package's ``core/estimator.py``.
+
+In trace vocabulary (core/trace.py): an estimator is the *prior* over
+program costs — it predicts the virtual-clock seconds each device program
+the engine dispatches should charge for a given row split and MX
+precision. The trace records what those programs cost the host (per-event
+``wall_s``), and :meth:`~repro_torch.core.replay.TraceReplayer.calibrate`
+fits per-kernel scale factors from it, which :class:`CalibratedEstimator`
+applies to the prior; :class:`PlacementCostModel` is the manager tier's
+placement economics, which a calibration re-expresses in measured seconds.
 
 Two model backends, whose seconds drive the session's virtual clock; the
-arithmetic of both is the reference's, float for float:
+arithmetic of both, and of the two wrappers, is the reference's, float for
+float:
 
 * ``DaCapoEstimator`` — the paper's accelerator: an R x 16 array of DPEs at
   500 MHz, each computing one 16-wide dot product in 1 (MX4) / 4 (MX6) /
@@ -21,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 from repro_torch.configs.dacapo_pairs import VisionConfig
 from repro_torch.models.resnet import block_plan
@@ -146,6 +156,98 @@ class TPUEstimator:
 
     def inference_fps(self, cfg, rows, precision):
         return 1.0 / self.forward_time(cfg, rows, precision, batch=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class CalibratedEstimator:
+    """An estimator prior corrected by measured trace wall times.
+
+    Wraps any backend with the same surface (``forward_time`` /
+    ``train_step_time`` / ``inference_fps`` / ``total_rows``) and scales
+    its predictions by per-kernel factors — typically the Σwall/Σcost
+    ratios a :meth:`~repro_torch.core.replay.TraceReplayer.calibrate` fit
+    from a recorded trace (``forward_scale`` from the forward-pass
+    programs, ``train_scale`` from the retraining charges). Scale 1.0 is
+    the uncorrected prior; the wrapper stays frozen and hashable like the
+    backends, so allocators can hold it where they held the base.
+    """
+
+    base: object = dataclasses.field(default_factory=DaCapoEstimator)
+    forward_scale: float = 1.0
+    train_scale: float = 1.0
+
+    @property
+    def total_rows(self) -> int:
+        return self.base.total_rows
+
+    def forward_time(self, cfg: VisionConfig, rows: int, precision: str,
+                     batch: int = 1) -> float:
+        return self.forward_scale * self.base.forward_time(
+            cfg, rows, precision, batch)
+
+    def train_step_time(self, cfg: VisionConfig, rows: int, precision: str,
+                        batch: int) -> float:
+        return self.train_scale * self.base.train_step_time(
+            cfg, rows, precision, batch)
+
+    def inference_fps(self, cfg: VisionConfig, rows: int,
+                      precision: str) -> float:
+        return 1.0 / self.forward_time(cfg, rows, precision, batch=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementCostModel:
+    """Manager-tier placement economics on the overlapped execution model.
+
+    With overlapped shard stepping the manager's wall per round is ``max``
+    over shards of the per-shard phase load — not the sum — so placement
+    quality is measured in seconds shaved off that max:
+
+    * a candidate **migration**'s value is the per-round reduction of the
+      load maximum it buys, amortized over ``horizon_rounds`` (a lane's
+      cost is its last phase's T-SA seconds); the move itself costs
+      ``migration_cost_s`` (virtual seconds);
+    * **admission** control compares a shard's predicted T-SA
+      *utilization* — T-SA seconds per phase over the phase's modeled
+      wall — against ``oversub_limit``: above it, the shard's T-SA cannot
+      keep up with real time and a new lane would degrade every tenant.
+
+    The manager tier itself is not ported yet (ROADMAP Queue 1, item 9).
+    """
+
+    migration_cost_s: float = 0.0
+    horizon_rounds: int = 4
+    oversub_limit: float = 1.5
+
+    @staticmethod
+    def round_time_s(loads: Sequence[float]) -> float:
+        """Modeled manager wall per round: the slowest shard's load."""
+        return max(loads) if len(loads) else 0.0
+
+    def migration_gain_s(self, loads: Sequence[float], src: int, dst: int,
+                         lane_cost_s: float) -> float:
+        """T-SA seconds the move saves over ``horizon_rounds`` rounds."""
+        after = list(loads)
+        after[src] -= lane_cost_s
+        after[dst] += lane_cost_s
+        return (self.round_time_s(loads)
+                - self.round_time_s(after)) * self.horizon_rounds
+
+    def worth_migrating(self, loads: Sequence[float], src: int, dst: int,
+                        lane_cost_s: float) -> bool:
+        return (self.migration_gain_s(loads, src, dst, lane_cost_s)
+                > self.migration_cost_s)
+
+    @staticmethod
+    def utilization(t_tsa_s: float, phase_s: float) -> float:
+        """T-SA occupancy of one phase window (>1: can't keep up)."""
+        return t_tsa_s / phase_s if phase_s > 0 else 0.0
+
+    def admits(self, t_tsa_s: float, phase_s: float,
+               lane_cost_s: float) -> bool:
+        """Would a shard at (t_tsa_s, phase_s) absorb one more lane?"""
+        return (self.utilization(t_tsa_s + lane_cost_s, phase_s)
+                <= self.oversub_limit)
 
 
 def spatial_allocation(estimator, student: VisionConfig, fps: float,

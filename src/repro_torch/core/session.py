@@ -19,12 +19,15 @@ engine fissions it into T-SA / B-SA sub-meshes with
 :func:`~repro_torch.core.partition.partition_mesh` and binds each kernel
 to its sub-accelerator, re-partitioning online when a decision changes the
 split; on a single device the partition degenerates to time-sharing.
+With ``trace=`` the dispatch layer records every program and charge
+(core/trace.py), for replay and calibration (core/replay.py).
 
-Not ported yet: the trace recorder (``trace=``) and fleet sinks.
+Not ported yet: the fleet's score sinks (ROADMAP Queue 1, item 8).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -54,6 +57,7 @@ from repro_torch.core.partition import (
     single_device_partition,
 )
 from repro_torch.core.sample_buffer import SampleBuffer
+from repro_torch.core.trace import TraceRecorder
 from repro_torch.data.pipeline import FramePipeline
 from repro_torch.data.stream import DriftStream
 from repro_torch.device import DeviceLike, resolve_device
@@ -168,6 +172,7 @@ class CLSession:
         label_microbatch: Optional[int] = None,
         speculative_frames: Optional[bool] = None,
         decision_aware_spec: bool = True,
+        trace: Union[None, bool, TraceRecorder] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -177,7 +182,19 @@ class CLSession:
         self.apply_mx = apply_mx_numerics
         self.eval_fps = eval_fps  # accuracy-scoring subsample rate
         self.allocator = make_allocator(allocator, self.hp, precision_policy)
-        self.dispatcher = KernelDispatcher(dispatch)
+        # Trace spine (core/trace.py): ``trace=None`` keeps recording off
+        # unless the bound policy declares ``needs_trace`` (dacapo-replay);
+        # ``True`` makes a fresh recorder; a ready TraceRecorder is shared
+        # as it is. An empty recorder has len() 0, so test against None.
+        if trace is None and getattr(self.allocator, "needs_trace", False):
+            trace = True
+        if trace is True:
+            trace = TraceRecorder()
+        elif trace is False:
+            trace = None
+        self.dispatcher = KernelDispatcher(dispatch, recorder=trace)
+        if trace is not None:
+            self.allocator.attach_trace(trace)
         # Speculative frame prefetch follows the dispatch mode by default.
         if speculative_frames is None:
             speculative_frames = self.dispatcher.concurrent
@@ -337,7 +354,8 @@ class CLSession:
                     else pipe.frames(eval_cursor, t_end, max_frames=n_eval))
             if plan is not None:
                 plan.charge("b_sa", len(x)
-                            * self.inference.plan_time_per_sample(spatial))
+                            * self.inference.plan_time_per_sample(spatial),
+                            label="score", units=len(x))
             sink.add(t_end, x, y, keep_frac, serving_params)
             eval_cursor = t_end
 
@@ -355,18 +373,22 @@ class CLSession:
             spec_seen = (pipe.hits, pipe.misses)
             valid_h = xv = yv = None
             if temporal.profile_cost_s:
-                plan.charge("t_sa", temporal.profile_cost_s)
+                plan.charge("t_sa", temporal.profile_cost_s, label="profile")
             # ---------------- Retraining (Alg. 1 lines 4-7) ----------------
             acc_v = 1.0
             if len(buffer) >= hp.sgd_batch and temporal.retrain_samples > 0:
                 xt, yt, xv, yv = buffer.get_data(temporal.retrain_samples,
                                                  temporal.valid_samples)
+                fit_t0 = time.perf_counter() if plan.traced else 0.0
                 self.student_params, self._opt, n_batches = self.retrain.fit(
                     self.student_params, self._opt, xt, yt, self.rng,
                     epochs=temporal.retrain_epochs)
                 t_phase = n_batches * self.retrain.plan_time_per_batch(
                     spatial)
-                plan.charge("t_sa", t_phase)
+                plan.charge(
+                    "t_sa", t_phase, label="retrain", units=n_batches,
+                    wall_s=(time.perf_counter() - fit_t0 if plan.traced
+                            else 0.0))
                 retrain_time += t_phase
                 # UpdateWeight + Valid (lines 6-7), dispatched async;
                 # sequential charges validation on the T-SA chain,
@@ -378,7 +400,8 @@ class CLSession:
                     v_role, "valid",
                     lambda s=serving, v=xv: self.inference.predict_async(s, v),
                     cost_s=len(xv) * self.inference.plan_time_per_sample(
-                        spatial, role=v_role))
+                        spatial, role=v_role),
+                    units=len(xv))
             score_until(min(plan.now(), duration), serving, plan)
             if plan.now() >= duration:
                 clock = plan.finish()
@@ -397,13 +420,15 @@ class CLSession:
                 lambda: self.labeling.label_async(
                     self.teacher_params, x_l, prec.labeling,
                     microbatch=self._label_microbatch),
-                cost_s=n_label * self.labeling.plan_time_per_sample(spatial))
+                cost_s=n_label * self.labeling.plan_time_per_sample(spatial),
+                units=n_label)
             label_time += plan.now() - t_lab0
             pred_l_h = plan.dispatch(
                 "b_sa", "acc_label",
                 lambda: self.inference.predict_async(serving, x_l),
                 cost_s=len(x_l) * self.inference.plan_time_per_sample(
-                    spatial))
+                    spatial),
+                units=len(x_l))
             score_until(min(plan.now(), duration), serving, plan)
 
             # Fixed-window pacing, declared by the temporal plane.
@@ -490,6 +515,9 @@ class CLSystemSpec:
     speculative_frames: Optional[bool] = None
     # Pre-size speculated labeling bursts with the next decision's budget.
     decision_aware_spec: bool = True
+    # Trace spine: None = off (bit-identical), True = fresh TraceRecorder,
+    # or a ready TraceRecorder instance to share. See core/trace.py.
+    trace: Union[None, bool, TraceRecorder] = None
     device: DeviceLike = None  # None = cuda
 
     def build(self) -> CLSession:
@@ -515,6 +543,7 @@ class CLSystemSpec:
             label_microbatch=self.label_microbatch,
             speculative_frames=self.speculative_frames,
             decision_aware_spec=self.decision_aware_spec,
+            trace=self.trace,
             device=self.device,
         )
 

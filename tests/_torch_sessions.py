@@ -42,22 +42,29 @@ def port_stream(golden):
     return DriftStream(scenario("S1", len(jstream.segments)), seed=5, img=24)
 
 
+def port_session(golden, hp: dict, **kw):
+    """The port's session on the CPU (seed 0, ``eval_fps=0.5`` unless
+    ``kw`` says otherwise), with the fixture's weights carried across."""
+    _, _, _, tp_np, sp_np = golden
+    kw = {"seed": 0, "eval_fps": 0.5, **kw}
+    port = tsession.CLSystemSpec(
+        student=tcfg.RESNET18, teacher=tcfg.WIDERESNET50,
+        hp=talloc.CLHyperParams(**hp), device="cpu", **kw).build()
+    port.set_pretrained(params_from_numpy(tp_np, "cpu"),
+                        params_from_numpy(sp_np, "cpu"))
+    return port
+
+
 def session_pair(golden, hp: dict, jkw=None, tkw=None, **kw):
     """The reference's and the port's session from one description:
     ``kw`` goes to both specs, ``jkw`` / ``tkw`` to one each."""
-    _, tp, sp, tp_np, sp_np = golden
+    _, tp, sp, _, _ = golden
     ref = jsession.CLSystemSpec(
         student=J_RESNET18, teacher=J_WIDERESNET50,
         hp=jalloc.CLHyperParams(**hp), seed=0, eval_fps=0.5,
         **kw, **(jkw or {})).build()
     ref.set_pretrained(tp, sp)
-    port = tsession.CLSystemSpec(
-        student=tcfg.RESNET18, teacher=tcfg.WIDERESNET50,
-        hp=talloc.CLHyperParams(**hp), seed=0, eval_fps=0.5, device="cpu",
-        **kw, **(tkw or {})).build()
-    port.set_pretrained(params_from_numpy(tp_np, "cpu"),
-                        params_from_numpy(sp_np, "cpu"))
-    return ref, port
+    return ref, port_session(golden, hp, **kw, **(tkw or {}))
 
 
 def run_pair(golden, duration: float, hp: dict, **kw):

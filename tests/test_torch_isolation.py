@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
-``attention_mutants.py``, ``gemm_ablation.py`` and ``pair_per_gemm.py``
-import neither ``jax`` nor the JAX package, and its entry points default to the card and refuse
-to run without one."""
+``attention_mutants.py``, ``gemm_ablation.py``, ``pair_per_gemm.py`` and
+``examples/continuous_learning_drive_torch.py`` import neither ``jax`` nor
+the JAX package, and its entry points default to the card and refuse to
+run without one."""
 import ast
 import subprocess
 import sys
@@ -13,7 +14,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "attention_mutants.py",
-    ROOT / "gemm_ablation.py", ROOT / "pair_per_gemm.py"]
+    ROOT / "gemm_ablation.py", ROOT / "pair_per_gemm.py",
+    ROOT / "examples" / "continuous_learning_drive_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -45,6 +47,21 @@ def test_session_import_pulls_in_no_jax():
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         cwd=ROOT, env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}",
+                       "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_drive_example_pulls_in_no_jax():
+    """The ported drive example, imported and its body's imports run, loads
+    no module of JAX or of the JAX package."""
+    code = ("import sys, continuous_learning_drive_torch as d; "
+            "import repro_torch.core, repro_torch.core.partition, "
+            "repro_torch.data.stream, repro_torch.models.registry; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'examples'}",
                        "PATH": "/usr/bin:/bin"}, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

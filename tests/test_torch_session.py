@@ -168,7 +168,7 @@ def test_allocator_decisions_match_jax(name):
             assert td.split().to_legacy() == td
 
 
-@pytest.mark.parametrize("name", ["dacapo-replay", "fleet-uniform"])
+@pytest.mark.parametrize("name", ["fleet", "fleet-uniform"])
 def test_unported_allocators_raise(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         talloc.make_allocator(name, talloc.CLHyperParams())
