@@ -119,6 +119,24 @@ exits non-zero without printing a result:
    end, outputs equal to an untraced repeat, and each program's
    ``wall_s`` beside its device time.
 
+11. fleet  — the fleet engine (``core/fleet.py``) on the card, through
+   ``FleetSpec(...).build()``: the 3-stream fleet of the reference's fleet
+   tests (S1 / S3 / ES1, seeds 5 / 6 / 7, 24 px, 40 s of virtual time;
+   drift-weighted DC-ST lanes, resolve-max rows, MX6 serving) twice in
+   each dispatch mode, each pair bit for bit (every lane through
+   ``run_differences``, the fleet phase log), one "cuda" quantize and
+   dequantize launch per fill, every phase's ledger conserved over the
+   lanes; ``serve_batched`` against the per-lane run (ledgers exactly,
+   lane accuracies within 1e-6, fewer forwards) and the ViT pair's
+   2-stream fleet batched, its ``torch.func.vmap`` programs launching the
+   attention kernel once per layer; at full width ``predict_fleet_async``
+   over 3 lanes of ResNet18 and of ViT-B/32 against ``predict_async`` per
+   lane and ``label_fleet_async`` of WideResNet50 over 3 bursts of 128
+   against ``label_async`` per burst, with frames/s; a traced concurrent
+   fleet equal to the untraced one, each labeling group fanned over the 3
+   lanes with its wall split evenly, every phase replayed bit for bit
+   (also under its ``FleetDecision``), and the host time by label.
+
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
 event (``flush_l2``).
@@ -1150,7 +1168,8 @@ def replay_checks(tag: str, trace) -> float:
     return 100.0 * sum(errs) / len(errs)
 
 
-def host_breakdown(tag: str, trace, wall_s: float) -> dict:
+def host_breakdown(tag: str, trace, wall_s: float,
+                   phase: str = "trace") -> dict:
     """Phase 10: the run's host time by label — Σwall_s, Σcost_s and
     Σunits of each label's events (programs' issue walls, the retrain
     charge's measured fit; units are frames, samples or SGD batches), the
@@ -1177,7 +1196,7 @@ def host_breakdown(tag: str, trace, wall_s: float) -> dict:
            "recorded_wall_s": recorded,
            "unrecorded_wall_s": wall_s - recorded,
            "global_scale": cal.global_scale}
-    log("trace", f"{tag}: host time by label over a run of {wall_s:.4f} s "
+    log(phase, f"{tag}: host time by label over a run of {wall_s:.4f} s "
         "(label: events, Σwall s (share of the run), Σcost virtual s, "
         "calibrate() scale, Σunits): " + "; ".join(
             f"{label}: {row['events']}, {row['wall_s']:.4f} "
@@ -1458,6 +1477,489 @@ def trace_phase(est) -> dict:
     out["launches"]["full_width"] = full["launches"]
     out["full_width"] = full["rows"]
     print("[trace] summary " + json.dumps(out, default=float), flush=True)
+    return out
+
+
+# Phase 11: fleets on the card. The fleet of the reference's fleet tests
+# (tests/test_fleet.py: small_setup's hyper-parameters and pretraining,
+# _golden_streams), drift-weighted DC-ST lanes, MX6 serving.
+FLEET_HP = dict(n_t=32, n_l=16, c_b=128, epochs=1)
+FLEET_S = 40.0  # virtual seconds a fleet runs
+FLEET_LANES = 3
+
+
+def fleet_streams(n: int = FLEET_LANES) -> list:
+    """S1 / S3 / ES1, two segments each, seeds 5 / 6 / 7, 24 px."""
+    from repro_torch.data.stream import DriftStream, scenario
+
+    return [DriftStream(scenario(name, 2), seed=seed, img=24)
+            for name, seed in (("S1", 5), ("S3", 6), ("ES1", 7))][:n]
+
+
+def fleet_run(student, teacher, lanes: int = FLEET_LANES, hook=None,
+              **spec) -> dict:
+    """One repeatable fleet run: a fresh ``FleetSpec(student, teacher,
+    fleet_mode="drift-weighted", row_policy="resolve-max", apply_mx=True,
+    device="cuda", **spec).build()`` and a fresh
+    ``np.random.default_rng(0)``, teacher and student pretrained on the card
+    (10 and 8 steps of 32), then ``lanes`` streams for ``FLEET_S`` virtual
+    seconds, stepped through ``open_run`` (launch counts and kernel_stats
+    set to 0 just before). ``hook(fleet)`` runs after the build. Returns
+    the fleet, its result, the run's host wall, its fills, launch counts
+    and kernel_stats, each lane's final student tree and the
+    ``FleetDecision`` each phase executed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.allocation import CLHyperParams
+    from repro_torch.core.fleet import FleetSpec
+    from repro_torch.core.session import pretrain_model
+    from repro_torch.data.stream import DriftStream, scenario
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+
+    spec = {"fleet_mode": "drift-weighted", "row_policy": "resolve-max",
+            "apply_mx": True, "device": "cuda", "seed": 0, "eval_fps": 0.5,
+            "hp": CLHyperParams(**FLEET_HP), **spec}
+    fleet = FleetSpec(student=student, teacher=teacher, **spec).build()
+    if hook is not None:
+        hook(fleet)
+    stream = DriftStream(scenario("S1", 2), seed=5, img=24)
+    rng = np.random.default_rng(0)
+    tp = pretrain_model(fleet.teacher, stream, 10, 32, rng)
+    sp = pretrain_model(fleet.student, stream, 8, 32, rng,
+                        segments=stream.segments[:1], seed=8)
+    fleet.set_pretrained(tp, sp)
+    torch.cuda.synchronize()
+    fills = session_fills(fleet)
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    decisions = []
+    t0 = time.perf_counter()
+    run = fleet.open_run(fleet_streams(lanes), FLEET_S)
+    try:
+        while not run.done:
+            if run.lanes and run.clock < run.duration:
+                decisions.append(run.fleet_dec)  # the phase about to run
+            run.step()
+        res = run.finalize()
+        params = [lane.params for lane in run.lanes]
+    finally:
+        run.close()
+    torch.cuda.synchronize()
+    return {"fleet": fleet, "res": res, "wall": time.perf_counter() - t0,
+            "fills": session_fills(fleet) - fills,
+            "launches": mxq.launch_counts(), "stats": ops.kernel_stats(),
+            "params": params, "decisions": decisions}
+
+
+def fleet_differences(first: dict, second: dict) -> list:
+    """What differs between two :func:`fleet_run` results: each lane
+    through :func:`run_differences` (its phase log, drift events, average
+    accuracy, final student tree, and the run's launch counts), then the
+    fleet phase log and the fleet's average accuracy."""
+    from types import SimpleNamespace
+
+    diffs = []
+    a, b = first["res"], second["res"]
+    if a.n_streams != b.n_streams:
+        return [f"lanes {a.n_streams} != {b.n_streams}"]
+    for i in range(a.n_streams):
+        runs = [(SimpleNamespace(student_params=run["params"][i]), None,
+                 run["res"].streams[i], run["launches"], None)
+                for run in (first, second)]
+        diffs += [f"lane {i}: {d}" for d in run_differences(*runs)]
+    if a.fleet_phase_log != b.fleet_phase_log:
+        diffs.append("fleet phase logs differ")
+    if a.fleet_avg_accuracy != b.fleet_avg_accuracy:
+        diffs.append(f"fleet accuracy {a.fleet_avg_accuracy!r} != "
+                     f"{b.fleet_avg_accuracy!r}")
+    return diffs
+
+
+def fleet_conservation(tag: str, res) -> None:
+    """Every fleet phase's T-SA and B-SA charge is the sum of its lanes'
+    (relative 1e-9: the same addends, summed in another order)."""
+    for i, e in enumerate(res.fleet_phase_log):
+        for role in ("t_tsa", "t_bsa"):
+            lanes = e[f"per_stream_{role}"]
+            if len(lanes) != res.n_streams or not abs(
+                    sum(lanes) - e[role]) <= 1e-9 * max(1.0, e[role]):
+                raise AssertionError(f"{tag}: phase {i} {role} {e[role]!r}"
+                                     f" != sum of lanes {lanes}")
+
+
+def fleet_summary(run: dict) -> str:
+    res = run["res"]
+    return (f"phases {len(res.fleet_phase_log)}, drift events "
+            f"{[s.drift_events for s in res.streams]}, lane accuracies "
+            f"{[s.avg_accuracy for s in res.streams]}, wall "
+            f"{run['wall']:.4f} s, fills {run['fills']}, launches "
+            f"{run['launches']}, kernel_stats {run['stats']}")
+
+
+def fleet_pairs(out: dict) -> dict:
+    """Phase 11, part 1: the 3-stream fleet twice in each dispatch mode,
+    each pair bit for bit; one quantize and one dequantize launch per
+    fill, all "cuda"; every phase's ledger conserved over the lanes.
+    Returns each mode's first run."""
+    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+
+    firsts = {}
+    import numpy as np
+
+    for mode in ("sequential", "concurrent"):
+        tag = f"fleet_{mode}"
+        runs = [fleet_run(RESNET18, WIDERESNET50, dispatch=mode)
+                for _ in range(2)]
+        for i, run in enumerate(runs):
+            log("fleet", f"{tag} run {i + 1}: {fleet_summary(run)}")
+        diffs = fleet_differences(*runs)
+        if diffs:
+            raise AssertionError(f"{tag}: two runs differ: "
+                                 + "; ".join(diffs))
+        run = runs[0]
+        fill_checks(tag, run["fills"], run["launches"], run["stats"])
+        fleet_conservation(tag, run["res"])
+        res = run["res"]
+        if not all(np.isfinite(s.avg_accuracy) and s.phase_log
+                   for s in res.streams):
+            raise AssertionError(f"{tag}: bad lane results")
+        log("fleet", f"{tag}: the two runs agree bit for bit (every lane's "
+            "phase log, drift events, accuracy and student tree, the fleet "
+            f"phase log, launch counts); {run['fills']} fills, one cuda "
+            "quantize and one cuda dequantize launch each; ledgers "
+            f"conserved over {res.n_streams} lanes in every phase; walls "
+            f"{runs[0]['wall']:.4f} / {runs[1]['wall']:.4f} s per "
+            f"{FLEET_S:g} s of virtual time")
+        out["launches"][tag] = run["launches"]
+        out["walls"][tag] = [r["wall"] for r in runs]
+        firsts[mode] = run
+    return firsts
+
+
+def count_vmapped(fleet, seen: dict) -> None:
+    """Count the fleet programs ``predict_fleet_async`` issues for more
+    than one lane, and the attention calls made inside them."""
+    from repro_torch.kernels import ops
+
+    inner = fleet.inference.predict_fleet_async
+
+    def counted(params_list, windows):
+        before = ops.kernel_stats().get("flash_attention", {})
+        preds = inner(params_list, windows)
+        after = ops.kernel_stats().get("flash_attention", {})
+        if len(windows) > 1:
+            seen["programs"] += 1
+            for path in ("cuda", "plain"):
+                seen[path] += after.get(path, 0) - before.get(path, 0)
+        return preds
+
+    fleet.inference.predict_fleet_async = counted
+
+
+def fleet_batched(out: dict, per_lane: dict) -> None:
+    """Phase 11, part 2: ``serve_batched=True`` against the per-lane run of
+    part 1 (concurrent): ledgers and fleet phase log exactly, each lane's
+    accuracy within 1e-6 (as tests/test_fleet.py holds the reference's),
+    fewer forwards; then the ViT pair's 2-stream fleet, per lane and
+    batched, its vmapped programs calling the attention kernel ("cuda")
+    under ``torch.func.vmap``."""
+    from repro_torch.configs.dacapo_pairs import (RESNET18, VIT_B16, VIT_B32,
+                                                  WIDERESNET50)
+
+    seen = {"programs": 0, "cuda": 0, "plain": 0}
+    run = fleet_run(RESNET18, WIDERESNET50, dispatch="concurrent",
+                    serve_batched=True,
+                    hook=lambda f: count_vmapped(f, seen))
+    log("fleet", f"fleet_batched: {fleet_summary(run)}")
+    base, res = per_lane["res"], run["res"]
+    fill_checks("fleet_batched", run["fills"], run["launches"], run["stats"])
+    if res.fleet_phase_log != base.fleet_phase_log:
+        raise AssertionError("fleet_batched: fleet phase log != per-lane")
+    worst = 0.0
+    for a, b in zip(base.streams, res.streams):
+        if (a.retrain_time, a.label_time) != (b.retrain_time, b.label_time):
+            raise AssertionError("fleet_batched: lane ledgers differ")
+        worst = max(worst, abs(a.avg_accuracy - b.avg_accuracy))
+    calls = (per_lane["fleet"].inference.n_apply_calls,
+             run["fleet"].inference.n_apply_calls)
+    if not worst <= 1e-6 or not calls[1] < calls[0] or not seen["programs"]:
+        raise AssertionError(f"fleet_batched: accuracy off by {worst}, "
+                             f"forwards {calls}, vmapped {seen}")
+    log("fleet", f"fleet_batched: ledgers and fleet phase log equal to the "
+        f"per-lane run; lane accuracies within {worst:.3g} (limit 1e-6); "
+        f"student forwards {calls[0]} per lane -> {calls[1]} batched "
+        f"({seen['programs']} vmapped fleet programs)")
+    out["launches"]["fleet_batched"] = run["launches"]
+    out["walls"]["fleet_batched"] = run["wall"]
+    vit = {}
+    for batched in (False, True):
+        seen = {"programs": 0, "cuda": 0, "plain": 0}
+        vit[batched] = fleet_run(VIT_B32, VIT_B16, lanes=2,
+                                 dispatch="concurrent",
+                                 serve_batched=batched,
+                                 hook=lambda f, s=seen: count_vmapped(f, s))
+        vit[batched]["seen"] = seen
+        log("fleet", f"vit_fleet serve_batched={batched}: "
+            f"{fleet_summary(vit[batched])}")
+    run, seen = vit[True], vit[True]["seen"]
+    stats = run["stats"]
+    fill_checks("vit_fleet", run["fills"], run["launches"], stats)
+    if (not seen["programs"] or seen["plain"]
+            or seen["cuda"] != seen["programs"] * VIT_B32.reduced()
+            .num_layers or stats.get("flash_attention", {}).get("plain")):
+        raise AssertionError(f"vit_fleet: attention under vmap {seen}, "
+                             f"kernel_stats {stats}")
+    a, b = vit[False]["res"], run["res"]
+    if a.fleet_phase_log != b.fleet_phase_log or any(
+            (x.retrain_time, x.label_time) != (y.retrain_time, y.label_time)
+            for x, y in zip(a.streams, b.streams)):
+        raise AssertionError("vit_fleet: batched ledgers != per-lane")
+    diff = max(abs(x.avg_accuracy - y.avg_accuracy)
+               for x, y in zip(a.streams, b.streams))
+    log("fleet", f"vit_fleet: {seen['programs']} vmapped fleet programs "
+        f"issued {seen['cuda']} attention launches (one per layer each), "
+        f"all cuda; ledgers equal to the per-lane run; lane accuracies "
+        f"differ by {diff:.3g} (reported)")
+    out["launches"]["vit_fleet_batched"] = run["launches"]
+    out["vit_vmapped"] = dict(seen, accuracy_diff=diff)
+
+
+def fleet_full_width(est, dev="cuda") -> dict:
+    """Phase 11, part 3, at full width (224 px, 1000 classes, random
+    weights, MX6 serving copies): ``predict_fleet_async`` over 3 lanes'
+    trees of ResNet18 and of ViT-B/32 (32 frames a lane) against
+    ``predict_async`` per lane — logits within 1e-3 of the largest (fp32
+    summation order: a vmapped convolution with per-lane weights runs as a
+    grouped convolution), ids equal but where the top two logits lie
+    within twice the difference — and ``label_fleet_async`` of
+    WideResNet50 over 3 bursts of 128 (microbatch 64) against
+    ``label_async`` per burst: ids equal, else the frame's margin printed
+    and its logits held to the same limit. Frames/s of the fleet program
+    and of the per-lane programs (host frames in, ids synchronised, median
+    of 5)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.dacapo_pairs import (RESNET18, VIT_B32,
+                                                  WIDERESNET50)
+    from repro_torch.core.kernel import InferenceKernel, LabelingKernel
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_map
+
+    rng = np.random.default_rng(11)
+    px = RESNET18.img_size
+
+    def median_wall(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls))
+
+    def held(tag, lg_a, lg_b, ids_a, ids_b):
+        """Logits within 1e-3 of the largest; differing ids near ties."""
+        delta = (lg_a - lg_b).abs()
+        scale = float(lg_a.abs().max())
+        worst = float(delta.max())
+        if not bool(torch.isfinite(lg_a).all()) or not (
+                worst <= 1e-3 * max(1.0, scale)):
+            raise AssertionError(f"{tag}: logits differ by {worst} "
+                                 f"(largest {scale})")
+        top2 = lg_b.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        differ = np.nonzero(ids_a != ids_b)[0]
+        limit = 2 * delta.max(-1).values.cpu().numpy()
+        for i in differ:
+            log("fleet", f"{tag}: frame {i}: ids {ids_a[i]} / {ids_b[i]}, "
+                f"top-two margin {gap[i]:.3g}, logit difference "
+                f"{limit[i] / 2:.3g}")
+            if gap[i] > limit[i]:
+                raise AssertionError(f"{tag}: ids differ at frame {i} where"
+                                     " the top two logits are apart")
+        return worst, scale, len(differ)
+
+    out = {}
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    for cfg in (RESNET18, VIT_B32):
+        model = make_vision_model(cfg, dev)
+        kern = InferenceKernel(model, cfg, est, apply_mx=True, device=dev)
+        serving = [kern.serving_params(
+            model.init(torch.Generator().manual_seed(20 + i)), "mx6")
+            for i in range(FLEET_LANES)]
+        windows = [rng.normal(size=(32, px, px, 3)).astype(np.float32)
+                   for _ in range(FLEET_LANES)]
+        before = ops.kernel_stats().get("flash_attention", {}).get("cuda", 0)
+        fleet_ids = [p.cpu().numpy()
+                     for p in kern.predict_fleet_async(serving, windows)]
+        attn = ops.kernel_stats().get("flash_attention", {}).get(
+            "cuda", 0) - before
+        lane_ids = [kern.predict(s, w) for s, w in zip(serving, windows)]
+        stacked = tree_map(lambda *leaves: torch.stack(leaves), *serving)
+        x = torch.from_numpy(np.stack(windows)).to(dev)
+        with torch.no_grad():
+            lg_fleet = kern._apply_fleet[1](stacked, x).reshape(
+                -1, cfg.num_classes)
+            lg_lane = torch.cat([model.apply(s, x[i])
+                                 for i, s in enumerate(serving)])
+        worst, scale, near = held(f"{cfg.name} fleet predict", lg_fleet,
+                                  lg_lane, np.concatenate(fleet_ids),
+                                  np.concatenate(lane_ids))
+        n = FLEET_LANES * 32
+        fleet_s = median_wall(
+            lambda: kern.predict_fleet_async(serving, windows))
+        lane_s = median_wall(lambda: [kern.predict_async(s, w)
+                                      for s, w in zip(serving, windows)])
+        out[cfg.name] = {"frames": n, "fleet_fps": n / fleet_s,
+                         "per_lane_fps": n / lane_s, "max_logit_diff": worst,
+                         "largest_logit": scale, "near_ties": near,
+                         "attention_launches_fleet": attn}
+        if cfg is VIT_B32 and attn != cfg.num_layers:
+            raise AssertionError(f"vit-b32 fleet program: {attn} attention "
+                                 f"launches, expected {cfg.num_layers}")
+        log("fleet", f"full width {cfg.name}: predict_fleet_async over "
+            f"{FLEET_LANES} lanes x 32 frames = predict_async per lane "
+            f"(logits max |diff| {worst:.3g}, largest {scale:.3g}, limit "
+            f"1e-3 of it; {near} ids excused as near ties; attention "
+            f"launches in the fleet program {attn}); frames/s fleet "
+            f"{n / fleet_s:.1f}, per lane {n / lane_s:.1f}")
+        del kern, serving, stacked, x, lg_fleet, lg_lane
+    teacher = make_vision_model(WIDERESNET50, dev)
+    lab = LabelingKernel(teacher, WIDERESNET50, est, apply_mx=True,
+                         device=dev)
+    tparams = teacher.init(torch.Generator().manual_seed(30))
+    bursts = [rng.normal(size=(128, px, px, 3)).astype(np.float32)
+              for _ in range(FLEET_LANES)]
+    fleet_ids = np.concatenate([
+        y.cpu().numpy() for y in lab.label_fleet_async(
+            tparams, bursts, "mx6", microbatch=64)])
+    burst_ids = np.concatenate([lab.label(tparams, b, "mx6", microbatch=64)
+                                for b in bursts])
+    if np.array_equal(fleet_ids, burst_ids):
+        check = "ids equal"
+    else:
+        serving = lab.serving_cache.get(tparams, "mx6")
+        frames = np.concatenate(bursts)
+        with torch.no_grad():
+            lg_fleet = torch.cat([lab._run_apply(serving, frames[i: i + 64])
+                                  for i in range(0, len(frames), 64)])
+            lg_burst = torch.cat([lab._run_apply(serving, b[i: i + 64])
+                                  for b in bursts for i in range(0, 128, 64)])
+        worst, scale, near = held("wideresnet50 fleet label", lg_fleet,
+                                  lg_burst, fleet_ids, burst_ids)
+        check = (f"ids differ on {near} near ties; logits within {worst:.3g}"
+                 f" of largest {scale:.3g}")
+    n = FLEET_LANES * 128
+    fleet_s = median_wall(lambda: [y for y in lab.label_fleet_async(
+        tparams, bursts, "mx6", microbatch=64)])
+    burst_s = median_wall(lambda: [lab.label_async(tparams, b, "mx6",
+                                                   microbatch=64)
+                                   for b in bursts])
+    out[WIDERESNET50.name] = {"frames": n, "fleet_fps": n / fleet_s,
+                              "per_lane_fps": n / burst_s, "check": check}
+    log("fleet", f"full width wideresnet50: label_fleet_async over "
+        f"{FLEET_LANES} bursts of 128 (microbatch 64) against label_async "
+        f"per burst: {check}; frames/s fleet {n / fleet_s:.1f}, per burst "
+        f"{n / burst_s:.1f} | {nvidia_smi_line()}")
+    launches, stats = mxq.launch_counts(), ops.kernel_stats()
+    plain = {op: p for op, p in stats.items() if p.get("plain")}
+    if plain:
+        raise AssertionError(f"full-width fleet: plain calls {plain}")
+    return {"rows": out, "launches": launches}
+
+
+def fleet_traced(out: dict, untraced: dict) -> None:
+    """Phase 11, part 4: the 3-stream concurrent fleet traced equals the
+    untraced run of part 1 bit for bit; every ``dispatch_multi`` group
+    (the fleet's labeling program) has fan 3, one wall for each lane, and
+    the lanes' walls sum to the wall ``dispatch_multi`` measured, which
+    holds the labeling call (timed again inside it); every phase replays
+    bit for bit, also priced under the ``FleetDecision`` it executed;
+    the host time by label."""
+    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+    from repro_torch.core.replay import TraceReplayer
+
+    inner = []
+
+    def time_labeling(fleet):
+        call = fleet.labeling.label_fleet_async
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            labels = call(*args, **kwargs)
+            inner.append(time.perf_counter() - t0)
+            return labels
+
+        fleet.labeling.label_fleet_async = timed
+
+    run = fleet_run(RESNET18, WIDERESNET50, dispatch="concurrent",
+                    trace=True, hook=time_labeling)
+    log("fleet", f"fleet_traced: {fleet_summary(run)}")
+    diffs = fleet_differences(untraced, run)
+    if diffs:
+        raise AssertionError("fleet_traced: traced != untraced: "
+                             + "; ".join(diffs))
+    fill_checks("fleet_traced", run["fills"], run["launches"], run["stats"])
+    trace = run["fleet"].dispatcher.recorder.trace
+    groups = []
+    for phase in trace.phases:
+        group = [e for e in phase.events if e.label == "label"]
+        if group:
+            groups.append(group)
+    if len(groups) != len(inner):
+        raise AssertionError(f"fleet_traced: {len(groups)} labeling groups,"
+                             f" {len(inner)} labeling calls")
+    slack = []
+    for group, wall in zip(groups, inner):
+        walls = {e.wall_s for e in group}
+        total = sum(e.wall_s for e in group)
+        if ([e.lane for e in group] != list(range(FLEET_LANES))
+                or {e.fan for e in group} != {FLEET_LANES}
+                or len(walls) != 1 or not total >= wall):
+            raise AssertionError(f"fleet_traced: group {group} against the "
+                                 f"labeling call's {wall} s")
+        slack.append(total - wall)
+    rep = TraceReplayer(trace)
+    if len(run["decisions"]) != len(trace.phases):
+        raise AssertionError(f"fleet_traced: {len(run['decisions'])} "
+                             f"decisions for {len(trace.phases)} phases")
+    for i, (phase, dec) in enumerate(zip(trace.phases, run["decisions"])):
+        got = (rep.phase_time(i), rep.predict(i, dec))
+        if got != (phase.end, phase.end):
+            raise AssertionError(f"fleet_traced: phase {i} replays to {got}"
+                                 f", recorded end {phase.end!r}")
+    replay_checks("fleet_traced", trace)
+    out["breakdown"] = host_breakdown("fleet_traced", trace, run["wall"],
+                                      phase="fleet")
+    out["walls"]["fleet_traced"] = run["wall"]
+    out["launches"]["fleet_traced"] = run["launches"]
+    log("fleet", f"fleet_traced: traced == untraced bit for bit; "
+        f"{len(groups)} labeling groups, each fan {FLEET_LANES} with one "
+        f"wall per lane summing to the measured wall (it exceeds the "
+        f"labeling call's own by {min(slack) * 1e3:.3f}-"
+        f"{max(slack) * 1e3:.3f} ms); all {len(trace.phases)} phases "
+        "replay bit for bit, also under the FleetDecision each executed")
+
+
+def fleet_phase(est) -> dict:
+    """Phase 11: fleets on the card (parts 1-4 above). Returns each part's
+    launch counts, walls, rates and the traced host breakdown."""
+    out = {"launches": {}, "walls": {}}
+    firsts = fleet_pairs(out)
+    fleet_batched(out, firsts["concurrent"])
+    full = fleet_full_width(est)
+    out["launches"]["full_width"] = full["launches"]
+    out["full_width"] = full["rows"]
+    fleet_traced(out, firsts["concurrent"])
+    print("[fleet] summary " + json.dumps(out, default=float), flush=True)
     return out
 
 
@@ -2042,6 +2544,12 @@ def main() -> None:
     trace_launches = trace_phase(est)["launches"]
     log("trace", f"phase done in {time.perf_counter() - t0:.2f} s")
 
+    # ------------------------------------------------------------ 11 fleet
+    t0 = time.perf_counter()
+    fleet = fleet_phase(est)
+    fleet_launches = fleet["launches"]
+    log("fleet", f"phase done in {time.perf_counter() - t0:.2f} s")
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -2060,6 +2568,8 @@ def main() -> None:
                                for part, counts in mode_launches.items()},
             "launches_trace": {part: counts[name]
                                for part, counts in trace_launches.items()},
+            "launches_fleet": {part: counts[name]
+                               for part, counts in fleet_launches.items()},
             "trees": [{key: row[key] for key in (
                 "tree", "leaves", "elements", "launches", "bound_ms",
                 "q_ms" if name == "mx_quantize" else "dq_ms") if key in row}
@@ -2080,6 +2590,11 @@ def main() -> None:
             "vit_concurrent"]["flash_attention"]},
         "launches_trace": {part: trace_launches[part]["flash_attention"]
                            for part in ("vit_sequential", "full_width")},
+        "launches_fleet": {
+            "vit_fleet_batched": fleet_launches["vit_fleet_batched"][
+                "flash_attention"],
+            "vit_vmapped": fleet["vit_vmapped"]["cuda"],
+            "full_width": fleet_launches["full_width"]["flash_attention"]},
         "cases": attention_rows})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,16 @@
 """The CL system: MX serving precision, Algorithm 1 allocation policies,
 the three CL kernels, mesh spatial partitioning, the estimators, the
-CLSession engine behind the CLSystemSpec front door, and the trace spine
-with its replayer."""
+CLSession engine behind the CLSystemSpec front door, the fleet engine
+behind FleetSpec, and the trace spine with its replayer."""
 from repro_torch.core.allocation import (  # noqa: F401
     ALLOCATORS,
+    FLEET_MODES,
     AllocationDecision,
     AllocationPolicy,
     CLHyperParams,
     EkyaAllocator,
     EOMUAllocator,
+    FleetAllocator,
     OnlineSpatiotemporalAllocator,
     PhaseFeedback,
     ReplayAllocator,
@@ -22,10 +24,15 @@ from repro_torch.core.allocation import (  # noqa: F401
 from repro_torch.core.allocation import ALLOCATORS as SCHEDULERS  # noqa: F401
 from repro_torch.core.cl_system import ContinuousLearningSystem  # noqa: F401
 from repro_torch.core.decision import (  # noqa: F401
+    FLEET_ROW_POLICIES,
     Decision,
+    FleetDecision,
+    FleetRowContext,
+    FleetRowPolicy,
     SpatialPlan,
     TemporalPlan,
     as_decision,
+    make_fleet_row_policy,
 )
 from repro_torch.core.dispatch import (  # noqa: F401
     DISPATCH_MODES,
@@ -40,6 +47,13 @@ from repro_torch.core.estimator import (  # noqa: F401
     PlacementCostModel,
     TPUEstimator,
     spatial_allocation,
+)
+from repro_torch.core.fleet import (  # noqa: F401
+    FleetResult,
+    FleetRun,
+    FleetSession,
+    FleetSpec,
+    LaneSnapshot,
 )
 from repro_torch.core.kernel import (  # noqa: F401
     InferenceKernel,
@@ -77,3 +91,4 @@ from repro_torch.core.trace import (  # noqa: F401
     TraceEvent,
     TraceRecorder,
 )
+from repro_torch.runtime.elastic import rehome_tree  # noqa: F401

@@ -1,5 +1,5 @@
 """Resource-allocation policies — Algorithm 1 and the §III baselines as data
-(the single-stream half of the JAX package's ``core/allocation.py``).
+(the JAX package's ``core/allocation.py`` ported).
 
 An ``AllocationPolicy`` looks at per-phase feedback (validation vs.
 fresh-label accuracy, the engine-side drift flag, the virtual clock) and
@@ -10,18 +10,27 @@ Spatiotemporal, DaCapo-Spatial, DC-ST-Online, DaCapo-Replay, Ekya and
 EOMU lives here, not in the engine loop. The virtual-clock arithmetic is
 the reference's, float for float.
 
-Not ported yet: ``FleetAllocator`` (ROADMAP Queue 1, item 8);
-``make_allocator`` raises on its names.
+Fleets add one more layer: ``FleetAllocator`` wraps a per-stream policy per
+camera, re-proportions the fleet's shared T-SA budget across the streams
+each phase (``FLEET_MODES``), and emits a
+:class:`~repro_torch.core.decision.FleetDecision`: N per-lane temporal
+planes plus ONE fleet-wide spatial plane from its
+:class:`~repro_torch.core.decision.FleetRowPolicy`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Dict, Optional, Sequence, Tuple, Type
+from typing import Dict, List, Optional, Sequence, Tuple, Type
 
 from repro_torch.configs.dacapo_pairs import VisionConfig
-from repro_torch.core.decision import Decision
+from repro_torch.core.decision import (
+    Decision,
+    FleetDecision,
+    FleetRowContext,
+    make_fleet_row_policy,
+)
 from repro_torch.core.drift import DriftDetector
 from repro_torch.core.estimator import spatial_allocation
 from repro_torch.core.mx import DEFAULT_POLICY, PrecisionPolicy
@@ -402,6 +411,392 @@ class ReplayAllocator(SpatiotemporalAllocator):
             pick, profile_cost_s=time.perf_counter() - t0)
 
 
+FLEET_MODES = ("uniform", "round-robin", "drift-weighted", "isolated")
+
+
+class FleetAllocator(AllocationPolicy):
+    """Cross-stream T-SA allocator: wraps one per-stream policy per camera
+    and splits the fleet's shared labeling/retraining budget across streams
+    each phase (Ekya's multi-tenant scheduling problem, ECCO's cross-camera
+    budget sharing — PAPERS.md).
+
+    Each stream lane keeps an ordinary :class:`AllocationPolicy` (its own
+    drift detector, its own online row state), so DC-ST / DC-ST-Online /
+    Ekya / EOMU compose unchanged; the fleet layer *re-proportions* the
+    temporal budgets the lane policies emit, and resolves their spatial
+    requests into ONE fleet
+    :class:`~repro_torch.core.decision.SpatialPlan` via the pluggable
+    ``row_policy`` (:class:`~repro_torch.core.decision.FleetRowPolicy`:
+    ``resolve-max``, the default, / ``drift-surge`` / ``weighted-vote``),
+    emitted together as a per-phase
+    :class:`~repro_torch.core.decision.FleetDecision`
+    (``initial_fleet_decision`` / ``next_fleet_decision``). The fleet-wide
+    budget per phase is ``budget_streams`` sessions' worth of T-SA work
+    (default 1.0: an N-stream fleet spends the same per-phase T-SA time a
+    single session would, keeping the phase cadence — and thus each
+    stream's update latency — independent of N).
+
+    Modes (``FLEET_MODES``):
+
+    * ``uniform`` — every stream gets ``1/N`` of the budget every phase;
+    * ``round-robin`` — one focus stream per phase gets the whole budget,
+      the rest label at the ``label_floor`` and retrain at the heartbeat
+      minimum (drift stays detectable on every camera);
+    * ``drift-weighted`` — shares follow each stream's accuracy-loss
+      signal: the drift gap ``max(0, acc_valid - acc_label)`` (spikes at
+      drift onset, before the buffer reset) plus the *recovery deficit*
+      ``max(0, best_acc - acc_label)`` — how far the lane currently runs
+      below its own healthy fresh-label accuracy (an EMA-tracked high-water
+      mark), which keeps budget on a drifted camera through retraining,
+      after the reset has collapsed the gap term — with a ``× drift_bias``
+      boost on phases whose lane policy fired drift;
+    * ``isolated`` — no re-proportioning at all: every stream keeps its
+      full per-session budget, so the fleet phase costs ~N× the T-SA time
+      (the naive "N sessions time-sharing one accelerator" baseline the
+      fleet bench compares against).
+
+    Per-stream decisions are emitted as ordinary ``AllocationDecision``s
+    (scaled via ``dataclasses.replace``), and a weight of exactly 1 returns
+    the lane decision object untouched — a 1-stream fleet is decision-for-
+    decision identical to the wrapped policy, which the degeneracy golden
+    pins. With ``scale_epochs``, retraining depth is proportioned too: a
+    lane at ``k×`` its uniform share retrains for ``round(k × hp.epochs)``
+    epochs (≥ 1).
+
+    Scaled sample budgets are quantized to multiples of ``bucket`` (labels/
+    retraining; validation to ``bucket // 2``), as in the reference: the
+    bucketed budgets are part of the decisions both packages must agree
+    on (the reference buckets to keep its set of compiled batch shapes
+    small).
+    """
+
+    name = "fleet"
+
+    def __init__(self, hp: CLHyperParams,
+                 precision: PrecisionPolicy = DEFAULT_POLICY,
+                 policy="dacapo-spatiotemporal",
+                 mode: str = "drift-weighted",
+                 budget_streams: float = 1.0,
+                 label_floor: float = 0.25,
+                 drift_bias: float = 4.0,
+                 gap_eps: float = 0.02,
+                 gap_ema: float = 0.5,
+                 scale_epochs: bool = False,
+                 bucket: int = 8,
+                 row_policy="resolve-max"):
+        super().__init__(hp, precision)
+        if mode not in FLEET_MODES:
+            raise ValueError(
+                f"unknown fleet mode {mode!r}; known: {FLEET_MODES}")
+        if isinstance(policy, FleetAllocator) or policy is FleetAllocator:
+            raise ValueError("FleetAllocator cannot wrap itself")
+        self._policy_spec = policy
+        self.mode = mode
+        self.row_policy = make_fleet_row_policy(row_policy)
+        self.name = f"fleet-{mode}"
+        if self.row_policy.name != "resolve-max":
+            self.name = f"fleet-{mode}+{self.row_policy.name}"
+        self.budget_streams = budget_streams
+        self.label_floor = label_floor
+        self.drift_bias = drift_bias
+        self.gap_eps = gap_eps
+        self.gap_ema = gap_ema
+        self.scale_epochs = scale_epochs
+        self.bucket = max(1, bucket)
+        self.policies: List[AllocationPolicy] = []
+        self._estimator = None
+        self._student_cfg: Optional[VisionConfig] = None
+        self._rr = 0  # round-robin focus cursor
+        self._gaps: List[float] = []  # per-stream drift-gap EMA
+        self._acc_ema: List[Optional[float]] = []  # fresh-label acc EMA
+        self._acc_best: List[float] = []  # healthy-acc high-water mark
+        self._last_weights: Optional[List[float]] = None  # last split shares
+        self._last_base: Optional[List[AllocationDecision]] = None
+
+    # -------------------------------------------------------------- binding
+    def bind(self, estimator, student_cfg: VisionConfig) -> "FleetAllocator":
+        super().bind(estimator, student_cfg)
+        self._estimator, self._student_cfg = estimator, student_cfg
+        for p in self.policies:
+            p.precision = self.precision
+            p.bind(estimator, student_cfg)
+        return self
+
+    def lanes(self, n: int) -> List[AllocationPolicy]:
+        """(Re)create the per-stream policies for an ``n``-stream run —
+        fresh drift detectors and round-robin/EMA state every run."""
+        if isinstance(self._policy_spec, AllocationPolicy):
+            if n > 1:
+                raise ValueError(
+                    "FleetAllocator needs a policy name/class for n > 1 "
+                    "streams (a shared instance would share detector state)")
+            self.policies = [self._policy_spec][:n]
+        else:
+            self.policies = [make_allocator(self._policy_spec, self.hp,
+                                            self.precision)
+                             for _ in range(n)]
+        for p in self.policies:
+            p.precision = self.precision
+            if self._estimator is not None:
+                p.bind(self._estimator, self._student_cfg)
+        self._rr = 0
+        self._gaps = [0.0] * n
+        self._acc_ema = [None] * n
+        self._acc_best = [0.0] * n
+        self._last_weights = None
+        self._last_base = None
+        self.row_policy.reset(n)
+        return self.policies
+
+    def begin_empty(self) -> None:
+        """Start a zero-lane fleet that ``admit_lane`` will populate — the
+        manager's restore path (an empty shard receiving re-homed lanes).
+        Fresh fleet-side state, with the base-decision ledger open so the
+        first ``rebuild_fleet_decision`` sees the admitted lanes."""
+        self.lanes(0)
+        self._last_base = []
+
+    # ------------------------------------------------------------ decisions
+    _SINGLE_STREAM_MSG = (
+        "FleetAllocator emits per-stream decision lists "
+        "(initial_decisions/next_decisions) and must run inside a "
+        "FleetSession — build one via FleetSpec, not CLSystemSpec")
+
+    def initial_decision(self) -> AllocationDecision:
+        raise TypeError(self._SINGLE_STREAM_MSG)
+
+    def next_decision(self, feedback: PhaseFeedback) -> AllocationDecision:
+        raise TypeError(self._SINGLE_STREAM_MSG)
+
+    def initial_decisions(self, n: int) -> List[AllocationDecision]:
+        self.lanes(n)  # fresh per-lane policies/state every run
+        base = [p.initial_decision() for p in self.policies]
+        self._last_base = list(base)
+        self._last_weights = self._weights(base, None)
+        return self._split(base, self._last_weights)
+
+    def next_decisions(self, feedbacks: Sequence[PhaseFeedback]
+                       ) -> List[AllocationDecision]:
+        if len(feedbacks) != len(self.policies):
+            raise ValueError(
+                f"{len(feedbacks)} feedbacks for {len(self.policies)} lanes")
+        base = [p.next_decision(fb)
+                for p, fb in zip(self.policies, feedbacks)]
+        self._last_base = list(base)
+        self._last_weights = self._weights(base, feedbacks)
+        return self._split(base, self._last_weights)
+
+    # ------------------------------------------------------ fleet decisions
+    def initial_fleet_decision(self, n: int) -> FleetDecision:
+        """The fleet phase as a first-class decision: N per-lane temporal
+        planes + ONE fleet spatial plane from the bound row policy."""
+        return self._fleet_decision(self.initial_decisions(n), None)
+
+    def next_fleet_decision(self, feedbacks: Sequence[PhaseFeedback]
+                            ) -> FleetDecision:
+        return self._fleet_decision(self.next_decisions(feedbacks),
+                                    feedbacks)
+
+    def _fleet_decision(self, lane_decisions: Sequence[AllocationDecision],
+                        feedbacks: Optional[Sequence[PhaseFeedback]]
+                        ) -> FleetDecision:
+        if self._estimator is None:
+            raise RuntimeError(
+                "FleetAllocator must be bound (estimator + student config) "
+                "before emitting FleetDecisions")
+        n = len(lane_decisions)
+        total = self._estimator.total_rows
+        planes = [d.split() for d in lane_decisions]
+        spatials = [p.spatial.resolve(self._rows[0], self._rows[1], total)
+                    for p in planes]
+        # The fleet executes ONE spatial plane, so one PrecisionPolicy:
+        # lane precisions are forced to the fleet's at bind/lanes() time —
+        # refuse loudly if a custom lane policy diverged anyway, rather
+        # than silently charging every lane at lane 0's precisions.
+        first = spatials[0].precisions
+        if any(s.precisions != first for s in spatials[1:]):
+            raise ValueError(
+                "heterogeneous per-lane precisions are not supported at "
+                "the fleet level: the FleetDecision carries ONE fleet "
+                "SpatialPlan (and ledger) for the whole array")
+        # Engine-side drift truth when the feedback carries it; a lane
+        # policy's reset flag is the pre-`drifted` fallback (identical for
+        # DC-ST-family lanes, where reset fires exactly on drift).
+        drifted = tuple(
+            (fb.drifted if fb is not None and fb.drifted is not None
+             else d.reset_buffer)
+            for fb, d in zip(feedbacks or [None] * n, lane_decisions))
+        weights = tuple(self._last_weights or [1.0 / n] * n)
+        ctx = FleetRowContext(drifted=drifted, weights=weights,
+                              total_rows=total)
+        return FleetDecision(
+            spatial=self.row_policy.fleet_spatial(spatials, ctx),
+            temporal=tuple(p.temporal for p in planes),
+            lane_decisions=tuple(lane_decisions))
+
+    # ------------------------------------------------------ lane membership
+    # The fleet-manager tier changes membership mid-run: a camera is
+    # admitted, a lane migrates between shards, a dead shard's lanes are
+    # re-homed onto survivors. These hooks keep every per-lane parallel
+    # list (policy, drift-gap EMA, fresh-label EMA, high-water mark, last
+    # base decision) consistent without resetting the surviving lanes'
+    # state the way ``lanes()`` would.
+
+    def lane_policy_state(self, i: int) -> tuple:
+        """The fleet-side state of lane ``i``, as ``admit_lane`` re-accepts
+        it: (gap EMA, fresh-label EMA, high-water mark, last base
+        decision). Part of a lane snapshot — restoring it on the target
+        fleet makes the drift-weighted split treat the migrated lane
+        exactly as the source fleet would have."""
+        base = None if self._last_base is None else self._last_base[i]
+        return (self._gaps[i], self._acc_ema[i], self._acc_best[i], base)
+
+    def admit_lane(self, policy: Optional[AllocationPolicy] = None,
+                   lane_state: Optional[tuple] = None) -> int:
+        """Grow the fleet by one lane mid-run (admission, or a migrated
+        lane re-homing here). ``policy`` is the migrating lane's live
+        :class:`AllocationPolicy` — carrying its drift detector — or None
+        for a fresh camera; ``lane_state`` is :meth:`lane_policy_state`
+        from the source fleet. Returns the new lane index."""
+        if policy is None:
+            if isinstance(self._policy_spec, AllocationPolicy):
+                raise ValueError(
+                    "cannot admit a fresh lane into a FleetAllocator built "
+                    "around a shared policy instance — pass a policy "
+                    "name/class, or hand admit_lane the lane's policy")
+            policy = make_allocator(self._policy_spec, self.hp,
+                                    self.precision)
+        policy.precision = self.precision
+        if self._estimator is not None:
+            policy.bind(self._estimator, self._student_cfg)
+        self.policies.append(policy)
+        gap, ema, best, base = lane_state or (0.0, None, 0.0, None)
+        self._gaps.append(gap)
+        self._acc_ema.append(ema)
+        self._acc_best.append(best)
+        if self._last_base is not None:
+            self._last_base.append(base if base is not None
+                                   else policy.initial_decision())
+        return len(self.policies) - 1
+
+    def remove_lane(self, i: int) -> AllocationPolicy:
+        """Shrink the fleet by lane ``i`` (migration out / lane retired),
+        returning its live policy so a migration can carry it along."""
+        policy = self.policies.pop(i)
+        self._gaps.pop(i)
+        self._acc_ema.pop(i)
+        self._acc_best.pop(i)
+        if self._last_base is not None:
+            self._last_base.pop(i)
+        if self._last_weights is not None and i < len(self._last_weights):
+            self._last_weights.pop(i)
+        return policy
+
+    def rebuild_fleet_decision(self) -> FleetDecision:
+        """Re-emit a :class:`FleetDecision` for the *current* membership
+        from the lanes' last base decisions — the phase-boundary refresh
+        after ``admit_lane``/``remove_lane``, without advancing any lane
+        policy (no feedback is consumed). Drift-weighted fleets degrade to
+        a uniform split for this one rebuilt phase (the weights are
+        feedback-driven); round-robin keeps its focus cursor unmoved."""
+        if self._last_base is None:
+            return self.initial_fleet_decision(len(self.policies))
+        rr = self._rr  # a rebuild is not a phase: don't advance the focus
+        self._last_weights = self._weights(self._last_base, None)
+        self._rr = rr
+        return self._fleet_decision(
+            self._split(self._last_base, self._last_weights), None)
+
+    # -------------------------------------------------------------- weights
+    def _weights(self, base: Sequence[AllocationDecision],
+                 feedbacks: Optional[Sequence[PhaseFeedback]]
+                 ) -> Optional[List[float]]:
+        n = len(base)
+        if self.mode == "isolated":
+            return None  # no re-proportioning
+        if self.mode == "round-robin":
+            focus = self._rr % n
+            self._rr += 1
+            return [1.0 if i == focus else 0.0 for i in range(n)]
+        if self.mode == "drift-weighted" and feedbacks is not None:
+            raw = []
+            for i, (d, fb) in enumerate(zip(base, feedbacks)):
+                # Drift gap: buffer-vs-fresh mismatch (fires at drift
+                # onset, collapses once the buffer resets to fresh data).
+                gap = max(0.0, fb.acc_valid - fb.acc_label)
+                self._gaps[i] = (self.gap_ema * self._gaps[i]
+                                 + (1.0 - self.gap_ema) * gap)
+                # Recovery deficit: distance below the lane's own healthy
+                # fresh-label accuracy — keeps budget on a drifted camera
+                # through retraining, after the gap term has collapsed.
+                self._acc_ema[i] = (fb.acc_label
+                                    if self._acc_ema[i] is None
+                                    else self.gap_ema * self._acc_ema[i]
+                                    + (1.0 - self.gap_ema) * fb.acc_label)
+                self._acc_best[i] = max(self._acc_best[i],
+                                        self._acc_ema[i])
+                deficit = max(0.0, self._acc_best[i] - fb.acc_label)
+                w = self.gap_eps + self._gaps[i] + deficit
+                # Engine-set drift truth (feedback.drifted); the lane's
+                # reset flag is the legacy fallback — identical for the
+                # DC-ST family, where resets fire exactly on drift.
+                if (fb.drifted if fb.drifted is not None
+                        else d.reset_buffer):
+                    w *= self.drift_bias
+                raw.append(w)
+            total = sum(raw)
+            if total <= 0.0:  # e.g. gap_eps=0 on an all-healthy fleet
+                return [1.0 / n] * n
+            return [w / total for w in raw]
+        # uniform (and drift-weighted's first phase, before any feedback)
+        return [1.0 / n] * n
+
+    # -------------------------------------------------------------- scaling
+    def _split(self, base: Sequence[AllocationDecision],
+               weights: Optional[Sequence[float]]
+               ) -> List[AllocationDecision]:
+        if weights is None:
+            return list(base)
+        n = len(base)
+        return [self._scale(d, w, n) for d, w in zip(base, weights)]
+
+    def _scale(self, d: AllocationDecision, weight: float,
+               n: int) -> AllocationDecision:
+        share = weight * self.budget_streams
+        if abs(share - 1.0) < 1e-12 and not (self.scale_epochs and n > 1):
+            return d  # exact degeneracy: 1-stream fleets reuse the decision
+
+        def q(x: float, b: int) -> int:  # quantize to a shape bucket
+            return int(round(x / b)) * b
+
+        b = self.bucket
+        label_floor = max(1, int(round(self.label_floor * self.hp.n_l)))
+        # Retraining heartbeat: a lane that retrains at all runs at least
+        # one SGD batch. Scaling into (0, sgd_batch) would draw data and
+        # refresh serving while executing zero steps, and scaling to zero
+        # makes the engine report the acc_valid=1.0 sentinel — either way
+        # the lane's drift detector sees noise and fires false resets.
+        retrain = q(d.retrain_samples * share, b)
+        if d.retrain_samples > 0:
+            retrain = max(self.hp.sgd_batch, retrain)
+        # Validation is detection infrastructure, not adaptation budget:
+        # a retraining lane keeps its full N_v (cheap student inference)
+        # so acc_valid — half of the drift signal — stays low-variance.
+        valid = (d.valid_samples if retrain > 0
+                 else q(d.valid_samples * share, max(1, b // 2)))
+        label = max(label_floor, q(d.label_samples * share, b))
+        extra = q(d.extra_label_samples * share, b)
+        epochs = d.retrain_epochs
+        if self.scale_epochs and retrain > 0:
+            # k× the uniform share -> k× the retraining depth (>= 1 epoch).
+            epochs = max(1, int(round((epochs or self.hp.epochs)
+                                      * weight * n)))
+        return dataclasses.replace(
+            d, retrain_samples=retrain, valid_samples=valid,
+            label_samples=label, extra_label_samples=extra,
+            retrain_epochs=epochs)
+
+
 ALLOCATORS: Dict[str, Type[AllocationPolicy]] = {
     "dacapo-spatiotemporal": SpatiotemporalAllocator,
     "dacapo-spatiotemporal-online": OnlineSpatiotemporalAllocator,
@@ -411,22 +806,13 @@ ALLOCATORS: Dict[str, Type[AllocationPolicy]] = {
     "eomu": EOMUAllocator,
 }
 
-# The fleet's policies (``"fleet"``, ``"fleet-*"``): not ported yet.
-_NOT_PORTED = {"fleet": "ROADMAP Queue 1, item 8 (core/fleet.py)"}
-
-
 def make_allocator(allocator, hp: CLHyperParams,
                    precision: PrecisionPolicy = DEFAULT_POLICY
                    ) -> AllocationPolicy:
-    """Resolve a policy from a registry name, class, or ready instance; a
-    fleet policy's name raises ``NotImplementedError`` (not ported yet)."""
+    """Resolve a policy from a registry name, class, or ready instance."""
     if isinstance(allocator, AllocationPolicy):
         return allocator
     if isinstance(allocator, str):
-        if allocator.startswith("fleet"):
-            raise NotImplementedError(
-                f"allocator {allocator!r} is not ported yet: "
-                f"{_NOT_PORTED['fleet']}")
         try:
             cls = ALLOCATORS[allocator]
         except KeyError:

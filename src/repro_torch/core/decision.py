@@ -1,6 +1,7 @@
-"""The two-plane decision API for a single stream: SpatialPlan /
-TemporalPlan / Decision (the single-stream half of the JAX package's
-``core/decision.py``; the fleet and manager types are not ported yet).
+"""The two-plane decision API: SpatialPlan / TemporalPlan / Decision, and
+the fleet's FleetDecision with its pluggable row policies (the JAX
+package's ``core/decision.py`` but for the manager tier's
+``ManagerDecision`` / ``PlacementAction``, ROADMAP Queue 1, item 9b).
 
 * :class:`SpatialPlan` — where compute lives for a phase: the T-SA/B-SA
   row split, the per-kernel MX precisions, and the mesh re-fission intent;
@@ -14,11 +15,24 @@ engine (:class:`~repro_torch.core.session.CLSession`) consumes; the flat
 ``AllocationDecision`` (core/allocation.py) is a bidirectional facade over
 it — ``AllocationDecision.split()`` lifts, ``Decision.to_legacy()``
 flattens, and the round trip is the identity.
+
+A :class:`FleetDecision` carries N per-lane :class:`TemporalPlan`s plus ONE
+fleet-wide :class:`SpatialPlan` — the array is one, so the fleet has one
+row split per phase — produced by a :class:`FleetRowPolicy`:
+
+* ``resolve-max`` — the most T-SA-hungry lane wins (``max`` of the T-SA
+  requests, ``min`` of the B-SA ones);
+* ``drift-surge`` — when a quorum of lanes drifts in the same phase, grow
+  the fleet T-SA by ``surge_rows`` (never draining the B-SA) and hold the
+  surge under a hysteresis window;
+* ``weighted-vote`` — each lane votes its requested T-SA rows (plus a
+  drift boost when its detector fired), and the fleet split is the
+  drift-weighted average of the votes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple, Type
 
 from repro_torch.core.mx import DEFAULT_POLICY, PrecisionPolicy
 
@@ -115,3 +129,200 @@ def as_decision(decision) -> Decision:
     if isinstance(decision, Decision):
         return decision
     return Decision.from_legacy(decision)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetDecision:
+    """One fleet phase: N per-lane temporal planes, ONE fleet spatial plane.
+
+    ``spatial`` carries *resolved* rows (the engine executes them as-is);
+    ``lane_decisions`` keeps the per-lane legacy facades so records and
+    observers stay on the exact objects the lane policies emitted.
+    """
+
+    spatial: SpatialPlan
+    temporal: Tuple[TemporalPlan, ...]
+    lane_decisions: Tuple = ()
+
+    @property
+    def n_lanes(self) -> int:
+        return len(self.temporal)
+
+    def per_lane(self) -> Tuple[Decision, ...]:
+        """Per-lane :class:`Decision` views: the shared fleet spatial plane
+        combined with each lane's temporal plane."""
+        return tuple(Decision(spatial=self.spatial, temporal=t)
+                     for t in self.temporal)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetRowContext:
+    """What a :class:`FleetRowPolicy` may condition on, beyond the per-lane
+    spatial requests: the engine-side drift flags and the drift-weighted
+    temporal shares the :class:`~repro_torch.core.allocation.FleetAllocator`
+    computed for the same phase."""
+
+    drifted: Tuple[bool, ...]
+    weights: Tuple[float, ...]
+    total_rows: int
+
+
+class FleetRowPolicy:
+    """Pluggable fleet-wide row policy: N per-lane spatial requests in, ONE
+    fleet :class:`SpatialPlan` out.
+
+    ``FleetRowPolicy("drift-surge", **kwargs)`` dispatches through the
+    :data:`FLEET_ROW_POLICIES` registry (subclasses construct directly).
+    Policies may be stateful across phases (hysteresis); :meth:`reset` is
+    called once per fleet run.
+    """
+
+    name = "base"
+
+    def __new__(cls, spec: Optional[str] = None, **kwargs):
+        if cls is FleetRowPolicy:
+            key = spec or "resolve-max"
+            try:
+                sub = FLEET_ROW_POLICIES[key]
+            except KeyError:
+                raise KeyError(
+                    f"unknown fleet row policy {key!r}; "
+                    f"known: {sorted(FLEET_ROW_POLICIES)}") from None
+            return super().__new__(sub)
+        return super().__new__(cls)
+
+    def __init__(self, spec: Optional[str] = None, **kwargs):
+        # ``spec`` is the registry key consumed by __new__. Unknown kwargs
+        # are rejected: a misspelt tuning knob must not measure defaults.
+        del spec
+        if kwargs:
+            raise TypeError(
+                f"{type(self).__name__} got unexpected keyword "
+                f"arguments: {sorted(kwargs)}")
+
+    def reset(self, n_lanes: int) -> None:
+        """Fresh per-run state (hysteresis counters etc.)."""
+
+    def fleet_spatial(self, spatials: Sequence[SpatialPlan],
+                      ctx: FleetRowContext) -> SpatialPlan:
+        raise NotImplementedError
+
+    @staticmethod
+    def _resolve_max(spatials: Sequence[SpatialPlan]) -> SpatialPlan:
+        """The most T-SA-hungry lane wins."""
+        return dataclasses.replace(
+            spatials[0],
+            rows_tsa=max(s.rows_tsa for s in spatials),
+            rows_bsa=min(s.rows_bsa for s in spatials))
+
+
+class ResolveMaxRowPolicy(FleetRowPolicy):
+    """``max`` of the T-SA requests, ``min`` of the B-SA ones."""
+
+    name = "resolve-max"
+
+    def fleet_spatial(self, spatials: Sequence[SpatialPlan],
+                      ctx: FleetRowContext) -> SpatialPlan:
+        return self._resolve_max(spatials)
+
+
+class DriftSurgeRowPolicy(FleetRowPolicy):
+    """Grow the fleet T-SA when many lanes drift *simultaneously*.
+
+    When at least ``quorum`` of the lanes drift in one phase, ``surge_rows``
+    rows move from the B-SA to the T-SA (never draining the B-SA below one
+    row); the surge holds for ``hysteresis_phases`` phases — a fresh quorum
+    re-arms the window — and the rows return when the window expires.
+    ``surge_rows=None`` defaults to a quarter of the resolved B-SA rows (at
+    least one). In the time-shared regime (resolved rows don't sum to the
+    array) the policy is ``resolve-max``.
+    """
+
+    name = "drift-surge"
+
+    def __init__(self, spec: Optional[str] = None, *,
+                 surge_rows: Optional[int] = None,
+                 quorum: float = 0.5,
+                 hysteresis_phases: int = 2):
+        super().__init__(spec)
+        self.surge_rows = surge_rows
+        self.quorum = quorum
+        self.hysteresis_phases = hysteresis_phases
+        self._hold = 0
+
+    def reset(self, n_lanes: int) -> None:
+        self._hold = 0
+
+    def fleet_spatial(self, spatials: Sequence[SpatialPlan],
+                      ctx: FleetRowContext) -> SpatialPlan:
+        base = self._resolve_max(spatials)
+        if base.rows_tsa + base.rows_bsa != ctx.total_rows:
+            return base  # R=0 / time-shared regime: nothing to shift
+        n = max(1, len(ctx.drifted))
+        if sum(ctx.drifted) / n >= self.quorum:
+            self._hold = self.hysteresis_phases  # (re-)arm the window
+        elif self._hold > 0:
+            self._hold -= 1
+        if self._hold <= 0:
+            return base
+        avail = max(0, base.rows_bsa - 1)
+        want = (max(1, base.rows_bsa // 4) if self.surge_rows is None
+                else self.surge_rows)
+        boost = min(want, avail)
+        return dataclasses.replace(base, rows_tsa=base.rows_tsa + boost,
+                                   rows_bsa=base.rows_bsa - boost)
+
+
+class WeightedVoteRowPolicy(FleetRowPolicy):
+    """Row shares follow the drift-weighted temporal shares.
+
+    A *drifted* lane votes its ``rows_tsa`` plus ``drift_boost``, a
+    *healthy* lane its ``rows_tsa`` minus ``healthy_relief``; the fleet
+    T-SA is the vote averaged under the normalized drift-weighted shares
+    the ``FleetAllocator`` used to split the temporal budget, clamped to
+    keep at least one row on each side. ``drift_boost=None`` defaults to an
+    eighth of the array, ``healthy_relief=None`` to a quarter of the base
+    T-SA rows (0 pins the healthy-state split to ``resolve-max``).
+    """
+
+    name = "weighted-vote"
+
+    def __init__(self, spec: Optional[str] = None, *,
+                 drift_boost: Optional[int] = None,
+                 healthy_relief: Optional[int] = None):
+        super().__init__(spec)
+        self.drift_boost = drift_boost
+        self.healthy_relief = healthy_relief
+
+    def fleet_spatial(self, spatials: Sequence[SpatialPlan],
+                      ctx: FleetRowContext) -> SpatialPlan:
+        base = self._resolve_max(spatials)
+        if base.rows_tsa + base.rows_bsa != ctx.total_rows:
+            return base  # time-shared regime
+        boost = (max(1, ctx.total_rows // 8) if self.drift_boost is None
+                 else self.drift_boost)
+        relief = (max(1, base.rows_tsa // 4) if self.healthy_relief is None
+                  else self.healthy_relief)
+        votes = [(s.rows_tsa + boost) if d else (s.rows_tsa - relief)
+                 for s, d in zip(spatials, ctx.drifted)]
+        r_tsa = int(round(sum(w * v for w, v in zip(ctx.weights, votes))))
+        r_tsa = max(1, min(ctx.total_rows - 1, r_tsa))
+        return dataclasses.replace(base, rows_tsa=r_tsa,
+                                   rows_bsa=ctx.total_rows - r_tsa)
+
+
+FLEET_ROW_POLICIES: Dict[str, Type[FleetRowPolicy]] = {
+    "resolve-max": ResolveMaxRowPolicy,
+    "drift-surge": DriftSurgeRowPolicy,
+    "weighted-vote": WeightedVoteRowPolicy,
+}
+
+
+def make_fleet_row_policy(policy, **kwargs) -> FleetRowPolicy:
+    """Resolve a row policy from a registry name, class, or ready
+    instance."""
+    if isinstance(policy, FleetRowPolicy):
+        return policy
+    if isinstance(policy, str):
+        return FleetRowPolicy(policy, **kwargs)
+    return policy(**kwargs)

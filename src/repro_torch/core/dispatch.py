@@ -1,5 +1,5 @@
 """Async kernel dispatch: the plan → dispatch → collect execution layer
-(the single-stream part of the JAX package's ``core/dispatch.py``).
+(the JAX package's ``core/dispatch.py`` ported).
 
 The session builds a per-phase :class:`PhasePlan` and *dispatches* device
 programs through it — PyTorch launches CUDA work asynchronously, so a
@@ -25,27 +25,33 @@ Virtual-clock semantics (``dispatch=`` on ``CLSystemSpec`` / ``CLSession``):
 Both modes issue every program eagerly; the difference is purely in clock
 accounting, which is the reference's float arithmetic, add for add.
 
+Fleet sessions (core/fleet.py) bind N pipelines to one plan — one
+data-plane lane per camera stream — and attribute every charge to a lane
+ledger next to the fleet ledger, so the shared T-SA is charged once for the
+fleet while per-stream shares stay auditable (``lane_time``).
+``dispatch_multi`` issues one device program on behalf of several lanes
+(cross-stream batched labeling) and fans its per-lane results out into
+individual handles.
+
 Trace spine (core/trace.py): with a
 :class:`~repro_torch.core.trace.TraceRecorder` attached to the dispatcher
-(``CLSystemSpec(trace=...)``), every ``dispatch`` is recorded as a
-``"program"`` :class:`~repro_torch.core.trace.TraceEvent` — role, label,
-virtual cost, host wall time of the issue, the kernel path that served it
-and the unit count the cost scales with — and every bare ``charge`` as a
+(``CLSystemSpec(trace=...)``), every ``dispatch`` / ``dispatch_multi``
+issue is recorded as a ``"program"``
+:class:`~repro_torch.core.trace.TraceEvent` — role, label, lane, virtual
+cost, host wall time of the issue, the kernel path that served it and the
+unit count the cost scales with — and every bare ``charge`` as a
 ``"charge"`` event, in issue order. Recording touches no numeric plan
 state, so traced runs are bit-identical to untraced ones; with no recorder
 (the default) the traced overrides reduce to one ``is None`` check and the
 untraced code path. :class:`~repro_torch.core.replay.TraceReplayer`
 replays the recorded per-role float-add sequence to reconstruct, and
 predict, phase times.
-
-Not ported yet: the fleet's lanes (``lane=`` on ``charge``,
-``dispatch_multi``, ``lane_totals``; ROADMAP Queue 1, item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +63,16 @@ CONCURRENT = "concurrent"
 DISPATCH_MODES = (SEQUENTIAL, CONCURRENT)
 
 ROLES = ("t_sa", "b_sa")
+
+
+def _as_pipelines(pipeline) -> Tuple:
+    """Normalize ``begin_phase``'s pipeline argument: None, a single
+    FramePipeline, or a sequence of them (one lane per fleet stream)."""
+    if pipeline is None:
+        return ()
+    if isinstance(pipeline, (list, tuple)):
+        return tuple(pipeline)
+    return (pipeline,)
 
 
 def to_host(value: Any) -> np.ndarray:
@@ -98,6 +114,7 @@ class DeviceProgram:
     label: str  # e.g. "valid", "label", "score", "acc_label"
     cost_s: float
     handle: Optional[ProgramHandle]
+    lane: Optional[int] = None  # fleet stream lane this program serves
 
 
 class PhasePlan:
@@ -110,11 +127,23 @@ class PhasePlan:
     def __init__(self, mode: str, start: float, pipeline=None):
         self.mode = mode
         self.start = start
-        self.pipeline = pipeline  # the phase's FramePipeline
+        # One FramePipeline per stream lane; a single pipeline (the
+        # CLSession case) is lane 0 of a one-lane plan.
+        self.pipelines: Tuple = _as_pipelines(pipeline)
+        # The two-plane Decision(s) this phase executes, one per lane.
+        self.decisions: Tuple = ()
         self.programs: List[DeviceProgram] = []
         self.totals: Dict[str, float] = {role: 0.0 for role in ROLES}
+        # Per-lane ledgers: plain sums from 0.0 of the addends that feed
+        # ``totals``, so a one-lane plan's lane ledger is the fleet ledger.
+        self.lane_totals: Dict[int, Dict[str, float]] = {}
         self._now = start  # T-SA running clock
         self._floor = start  # pacing floor on the phase end
+
+    @property
+    def pipeline(self):
+        """Lane 0's pipeline (the single-stream handle)."""
+        return self.pipelines[0] if self.pipelines else None
 
     @property
     def traced(self) -> bool:
@@ -125,39 +154,79 @@ class PhasePlan:
 
     # ----------------------------------------------------------- dispatch
     def dispatch(self, role: str, label: str, issue: Callable[[], Any],
-                 cost_s: float = 0.0, units: float = 0.0) -> ProgramHandle:
+                 cost_s: float = 0.0, lane: Optional[int] = None,
+                 units: float = 0.0) -> ProgramHandle:
         """Issue a device program *now* (async — the thunk must not block)
-        and charge its cost; returns a handle to ``collect()`` later.
-        ``units`` is the trace-facing quantity the cost was computed from
-        (frames scored, samples labeled) — ignored untraced."""
+        and charge its cost (to ``lane``'s ledger too, with a lane);
+        returns a handle to ``collect()`` later. ``units`` is the
+        trace-facing quantity the cost was computed from (frames scored,
+        samples labeled) — ignored untraced."""
         del units
         handle = ProgramHandle(issue())
-        self.programs.append(DeviceProgram(role, label, cost_s, handle))
-        self.charge(role, cost_s)
+        self.programs.append(DeviceProgram(role, label, cost_s, handle, lane))
+        self.charge(role, cost_s, lane=lane)
         return handle
 
+    def dispatch_multi(self, role: str, label: str,
+                       issue: Callable[[], Sequence[Any]],
+                       costs: Sequence[float],
+                       lanes: Sequence[int],
+                       units: Optional[Sequence[float]] = None
+                       ) -> List[ProgramHandle]:
+        """Issue ONE device program serving several stream lanes (e.g. a
+        labeling burst batched across the fleet on the shared T-SA) and
+        split its per-lane results into individual handles. The thunk must
+        return one device value per lane; each lane's cost is charged to
+        both the fleet ledger and that lane's ledger, in lane order — for a
+        one-lane plan this is exactly a single ``dispatch``."""
+        del units
+        values = issue()
+        if len(values) != len(lanes) or len(costs) != len(lanes):
+            raise ValueError(
+                f"dispatch_multi: {len(values)} values / {len(costs)} costs "
+                f"for {len(lanes)} lanes")
+        handles = []
+        for value, cost_s, lane in zip(values, costs, lanes):
+            handle = ProgramHandle(value)
+            self.programs.append(
+                DeviceProgram(role, label, cost_s, handle, lane))
+            self.charge(role, cost_s, lane=lane)
+            handles.append(handle)
+        return handles
+
     def fetch(self, t0: float, t1: float, max_frames: int = 0,
-              tag: Optional[str] = None):
-        """Pull a frame window for this phase's programs through the bound
-        FramePipeline (speculative prefetch; results are bit-identical
-        either way). ``tag`` marks the window's role."""
-        if self.pipeline is None:
+              lane: int = 0, tag: Optional[str] = None):
+        """Pull a frame window for this phase's programs through lane
+        ``lane``'s bound FramePipeline (speculative prefetch; results are
+        bit-identical either way). ``tag`` marks the window's role."""
+        if not self.pipelines:
             raise ValueError(
                 "no FramePipeline bound to this plan; pass one to "
                 "KernelDispatcher.begin_phase")
-        return self.pipeline.frames(t0, t1, max_frames=max_frames, tag=tag)
+        return self.pipelines[lane].frames(t0, t1, max_frames=max_frames,
+                                           tag=tag)
 
-    def charge(self, role: str, seconds: float, label: Optional[str] = None,
+    def charge(self, role: str, seconds: float,
+               lane: Optional[int] = None, label: Optional[str] = None,
                units: float = 0.0, wall_s: float = 0.0) -> None:
         """Charge virtual time without an attached program (e.g. retraining
-        SGD, whose cost is known only after the batch count is).
+        SGD, whose cost is known only after the batch count is). With a
+        ``lane``, the charge is also attributed to that stream's ledger.
         ``label``/``units``/``wall_s`` annotate the charge for the trace
         spine (kernel name, quantity the cost scales with, measured host
         wall) — ignored untraced."""
         del label, units, wall_s
         self.totals[role] += seconds
+        if lane is not None:
+            lane_led = self.lane_totals.setdefault(
+                lane, {r: 0.0 for r in ROLES})
+            lane_led[role] += seconds
         if role == "t_sa":
             self._now += seconds
+
+    def lane_time(self, role: str, lane: int) -> float:
+        """This phase's virtual seconds charged to ``lane`` on ``role``."""
+        return self.lane_totals.get(lane, {}).get(role, 0.0)
 
     def pad_to(self, t: float) -> None:
         """Floor the phase end on a pacing-grid boundary (pace_window_s)."""
@@ -185,6 +254,12 @@ class PhasePlan:
         if self.mode == CONCURRENT:
             end = max(end, self.start + self.totals["b_sa"])
         return max(end, self._floor)
+
+    def collect_all(self) -> None:
+        """Barrier: materialize every outstanding program of this phase."""
+        for prog in self.programs:
+            if prog.handle is not None:
+                prog.handle.collect()
 
 
 class KernelDispatcher:
@@ -214,21 +289,27 @@ class KernelDispatcher:
     def concurrent(self) -> bool:
         return self.mode == CONCURRENT
 
-    def begin_phase(self, start: float, pipeline=None, decision=None,
+    def begin_phase(self, start: float, pipeline=None,
+                    decisions: Optional[Sequence] = None,
                     fps: Optional[float] = None) -> PhasePlan:
-        """Open a phase plan. Opening it rotates the pipeline's speculation
-        onto this phase start; with a stream ``fps``, the label hint (the
-        decision-aware speculation signal) derives from the decision's
-        labeling budget."""
-        if pipeline is not None:
-            hint = (None if decision is None or fps is None
-                    else (decision.temporal.total_label_samples, fps))
-            pipeline.begin_phase(start, label_hint=hint)
-        plan = _TrackedPlan(self, self.mode, start, pipeline)
+        """Open a phase plan. ``pipeline`` is a FramePipeline or a sequence
+        of them (one lane per fleet stream); opening the plan rotates each
+        pipeline's speculation onto this phase start. ``decisions`` (one
+        two-plane Decision per lane) is the phase's intent: with a stream
+        ``fps``, each lane's label hint — the decision-aware speculation
+        signal — derives from its temporal plane's labeling budget."""
+        pipelines = _as_pipelines(pipeline)
+        decisions = tuple(decisions) if decisions is not None else ()
+        for i, pipe in enumerate(pipelines):
+            d = decisions[i] if i < len(decisions) else None
+            hint = (None if d is None or fps is None
+                    else (d.temporal.total_label_samples, fps))
+            pipe.begin_phase(start, label_hint=hint)
+        plan = _TrackedPlan(self, self.mode, start, pipelines)
+        plan.decisions = decisions
         if self.recorder is not None:
             plan._trace = self.recorder.begin_phase(
-                start, self.mode,
-                decisions=() if decision is None else (decision,))
+                start, self.mode, decisions=plan.decisions)
         self.phases_dispatched += 1
         return plan
 
@@ -254,35 +335,71 @@ class _TrackedPlan(PhasePlan):
         return self._trace is not None
 
     def dispatch(self, role: str, label: str, issue: Callable[[], Any],
-                 cost_s: float = 0.0, units: float = 0.0) -> ProgramHandle:
+                 cost_s: float = 0.0, lane: Optional[int] = None,
+                 units: float = 0.0) -> ProgramHandle:
         self._dispatcher.programs_dispatched += 1
         by_label = self._dispatcher.programs_by_label
         by_label[label] = by_label.get(label, 0) + 1
         tr = self._trace
         if tr is None:
-            return super().dispatch(role, label, issue, cost_s)
+            return super().dispatch(role, label, issue, cost_s, lane=lane)
         recorder = self._dispatcher.recorder
         before = recorder.paths_before()
         t0 = time.perf_counter()
         self._in_program = True
         try:
-            handle = super().dispatch(role, label, issue, cost_s)
+            handle = super().dispatch(role, label, issue, cost_s, lane=lane)
         finally:
             self._in_program = False
         wall = time.perf_counter() - t0
         tr.events.append(TraceEvent(
             kind="program", role=role, label=label, cost_s=cost_s,
-            wall_s=wall, path=recorder.dominant_path(before), units=units))
+            lane=lane, wall_s=wall, path=recorder.dominant_path(before),
+            units=units))
         return handle
 
-    def charge(self, role: str, seconds: float, label: Optional[str] = None,
+    def dispatch_multi(self, role: str, label: str,
+                       issue: Callable[[], Sequence[Any]],
+                       costs: Sequence[float],
+                       lanes: Sequence[int],
+                       units: Optional[Sequence[float]] = None
+                       ) -> List[ProgramHandle]:
+        self._dispatcher.programs_dispatched += 1
+        by_label = self._dispatcher.programs_by_label
+        by_label[label] = by_label.get(label, 0) + 1
+        tr = self._trace
+        if tr is None:
+            return super().dispatch_multi(role, label, issue, costs, lanes)
+        recorder = self._dispatcher.recorder
+        before = recorder.paths_before()
+        t0 = time.perf_counter()
+        self._in_program = True
+        try:
+            handles = super().dispatch_multi(role, label, issue, costs,
+                                             lanes)
+        finally:
+            self._in_program = False
+        # One device program fanned across the lanes: the measured wall is
+        # split evenly over the per-lane events (``fan`` marks the group).
+        wall = (time.perf_counter() - t0) / max(1, len(lanes))
+        path = recorder.dominant_path(before)
+        for i, (cost_s, lane) in enumerate(zip(costs, lanes)):
+            tr.events.append(TraceEvent(
+                kind="program", role=role, label=label, cost_s=cost_s,
+                lane=lane, wall_s=wall, path=path,
+                units=(units[i] if units is not None else 0.0),
+                fan=len(lanes)))
+        return handles
+
+    def charge(self, role: str, seconds: float,
+               lane: Optional[int] = None, label: Optional[str] = None,
                units: float = 0.0, wall_s: float = 0.0) -> None:
-        super().charge(role, seconds)
+        super().charge(role, seconds, lane=lane)
         tr = self._trace
         if tr is not None and not self._in_program:
             tr.events.append(TraceEvent(
                 kind="charge", role=role, label=label or "charge",
-                cost_s=seconds, wall_s=wall_s, units=units))
+                cost_s=seconds, lane=lane, wall_s=wall_s, units=units))
 
     def finish(self) -> float:
         end = super().finish()
@@ -293,6 +410,6 @@ class _TrackedPlan(PhasePlan):
         return end
 
     def fetch(self, t0: float, t1: float, max_frames: int = 0,
-              tag: Optional[str] = None):
+              lane: int = 0, tag: Optional[str] = None):
         self._dispatcher.windows_fetched += 1
-        return super().fetch(t0, t1, max_frames, tag=tag)
+        return super().fetch(t0, t1, max_frames, lane=lane, tag=tag)

@@ -1,5 +1,5 @@
 """The three concurrent CL kernels as first-class objects (paper Fig. 4) —
-the single-stream part of the JAX package's ``core/kernel.py``.
+the JAX package's ``core/kernel.py`` ported.
 
 * ``InferenceKernel``  — student, every frame, B-SA;
 * ``LabelingKernel``   — teacher pseudo-labels on sampled frames, T-SA;
@@ -16,7 +16,10 @@ or labeling forward adds one to ``n_apply_calls``. With ``apply_mx``,
 serving copies are MX quantized through ``ServingParamsCache`` →
 ``core/mx.py`` → ``kernels/ops.py``: on the card a whole tree goes through
 one launch of the hand-written quantize kernel and one of the dequantize
-kernel.
+kernel. A fleet labels every lane's burst in one microbatched pass
+(:meth:`LabelingKernel.label_fleet_async`) and may serve every lane's
+student in one ``torch.func.vmap`` program
+(:meth:`InferenceKernel.predict_fleet_async`).
 """
 from __future__ import annotations
 
@@ -240,6 +243,7 @@ class InferenceKernel(_PlacedKernel):
         self.full_cfg = full_cfg
         self.estimator = estimator
         self.apply_mx = apply_mx
+        self._apply_fleet = None  # (model, its vmapped apply), built lazily
         self.serving_cache = ServingParamsCache()
 
     def serving_params(self, params, precision: str):
@@ -277,6 +281,42 @@ class InferenceKernel(_PlacedKernel):
         sizes = [len(w) for w in windows]
         fused = self.predict_async(params, np.concatenate(windows, axis=0))
         return list(torch.split(fused, sizes))
+
+    def predict_fleet_async(self, params_list: Sequence,
+                            windows: Sequence[np.ndarray]
+                            ) -> List[torch.Tensor]:
+        """Serve several lanes' frame windows in ONE program — the B-SA
+        mirror of :meth:`LabelingKernel.label_fleet_async`.
+
+        Each lane serves its own student tree, so the trees are stacked on
+        a new leading axis, the windows zero-padded to the longest lane and
+        stacked likewise, and one ``torch.func.vmap`` of the model's apply
+        serves the whole fleet (the ViT's attention kernel folds the lane
+        axis into its batch axis); per-lane predictions come back as
+        device-side slices, pad rows dropped. A single lane takes the exact
+        ``predict_async`` path. A vmapped convolution with per-lane weights
+        runs as a grouped convolution, which may differ from the per-lane
+        forwards in the last bits — why ``FleetSpec.serve_batched`` is
+        off by default."""
+        if not windows:
+            return []
+        if len(windows) == 1:
+            return [self.predict_async(params_list[0], windows[0])]
+        sizes = [len(w) for w in windows]
+        n_max = max(sizes)
+        padded = np.stack([
+            w if len(w) == n_max else np.concatenate(
+                [w, np.zeros((n_max - len(w),) + w.shape[1:], w.dtype)])
+            for w in windows])
+        stacked = tree_map(lambda *leaves: torch.stack(leaves), *params_list)
+        model, stacked = self._placed(stacked)
+        if self._apply_fleet is None or self._apply_fleet[0] is not model:
+            self._apply_fleet = (model, torch.func.vmap(model.apply))
+        self.n_apply_calls += 1
+        with torch.no_grad():
+            logits = self._apply_fleet[1](stacked, self._put(padded))
+        preds = torch.argmax(logits, -1)
+        return [preds[i, :size] for i, size in enumerate(sizes)]
 
     def time_per_sample(self, rows: int, precision: str) -> float:
         return self.estimator.forward_time(self.full_cfg, rows, precision,
@@ -328,6 +368,28 @@ class LabelingKernel(_PlacedKernel):
     def label(self, params, x, precision: str,
               microbatch: Optional[int] = None) -> np.ndarray:
         return self.label_async(params, x, precision, microbatch).cpu().numpy()
+
+    def label_fleet_async(self, params, bursts: Sequence[np.ndarray],
+                          precision: str,
+                          microbatch: Optional[int] = None
+                          ) -> List[torch.Tensor]:
+        """Label several streams' bursts in ONE pass over the shared T-SA:
+        the bursts are concatenated, the *combined* burst microbatched
+        (``ceil(sum(n_i) / mb)`` forwards — chunks cross stream
+        boundaries), and the labels split back per stream as device-side
+        slices. Per-sample models make the result equal to labeling each
+        burst alone; a single burst takes the exact ``label_async``
+        path."""
+        bursts = list(bursts)
+        if not bursts:
+            return []
+        if len(bursts) == 1:
+            return [self.label_async(params, bursts[0], precision,
+                                     microbatch)]
+        sizes = [len(b) for b in bursts]
+        fused = self.label_async(params, np.concatenate(bursts, axis=0),
+                                 precision, microbatch)
+        return list(torch.split(fused, sizes))
 
     def serving_quantized(self, params, precision: str):
         """The teacher's RESIDENT quantized copy (see

@@ -13,10 +13,11 @@ replayer answers *what-if* questions without executing anything:
 
 * :meth:`TraceReplayer.predict` re-prices the decision-dependent events of
   a phase under a **candidate** :class:`~repro_torch.core.decision.Decision`
-  — sample budgets re-scale each event by its recorded unit cost
-  (``cost_s / units``), row/precision changes re-scale by the estimator's
-  time ratios, profiling overhead is replaced outright — and replays the
-  re-priced stream through the same clock arithmetic;
+  or ``FleetDecision`` (matched to events by lane) — sample budgets
+  re-scale each event by its recorded unit cost (``cost_s / units``),
+  row/precision changes re-scale by the estimator's time ratios,
+  profiling overhead is replaced outright — and replays the re-priced
+  stream through the same clock arithmetic;
 * ``from_units=True`` prices events from the trace-wide per-label unit
   costs (:meth:`TraceReplayer.unit_costs`) instead of their recorded costs;
 * ``mode=`` replays a trace under the *other* dispatch semantics;
@@ -30,16 +31,13 @@ Replay is host float arithmetic over the recorded events only, the
 reference's operation for operation: a trace gives the same floats in
 either package. The ``"dacapo-replay"`` allocation policy
 (core/allocation.py) drives :meth:`predict` as its scoring oracle.
-
-Not ported yet: candidates that are a fleet's ``FleetDecision`` (ROADMAP
-Queue 1, item 8); :meth:`TraceReplayer.predict` raises on one.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.core.decision import as_decision
+from repro_torch.core.decision import FleetDecision, as_decision
 from repro_torch.core.estimator import CalibratedEstimator, PlacementCostModel
 from repro_torch.core.trace import SessionTrace, TraceEvent, summarize_decision
 
@@ -188,7 +186,8 @@ class TraceReplayer:
         bitwise equal to the recorded ``end``. ``decision`` re-prices the
         decision-dependent events under a candidate
         :class:`~repro_torch.core.decision.Decision` (or flat
-        ``AllocationDecision``); ``mode`` replays under the other dispatch
+        ``AllocationDecision``, or ``FleetDecision``, matched to events by
+        lane); ``mode`` replays under the other dispatch
         semantics; ``from_units`` prices unit-carrying events from the
         trace-wide histograms instead of their recorded costs.
         """
@@ -219,10 +218,9 @@ class TraceReplayer:
         """Candidate decision(s) keyed by lane (``None`` = any lane)."""
         if decision is None:
             return {}
-        if hasattr(decision, "per_lane"):
-            raise NotImplementedError(
-                "replaying a fleet's FleetDecision is not ported yet: "
-                "ROADMAP Queue 1, item 8 (core/fleet.py)")
+        if isinstance(decision, FleetDecision):
+            return {i: summarize_decision(d)
+                    for i, d in enumerate(decision.per_lane())}
         summary = summarize_decision(as_decision(decision))
         return {None: summary, 0: summary}
 

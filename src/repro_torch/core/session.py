@@ -20,9 +20,10 @@ engine fissions it into T-SA / B-SA sub-meshes with
 to its sub-accelerator, re-partitioning online when a decision changes the
 split; on a single device the partition degenerates to time-sharing.
 With ``trace=`` the dispatch layer records every program and charge
-(core/trace.py), for replay and calibration (core/replay.py).
-
-Not ported yet: the fleet's score sinks (ROADMAP Queue 1, item 8).
+(core/trace.py), for replay and calibration (core/replay.py). Fleets
+(core/fleet.py) generalize this loop over lanes: ``PhaseRecord.stream``
+names a record's lane, and :func:`flush_sinks_batched` serves every lane's
+queued score windows in one program.
 """
 from __future__ import annotations
 
@@ -95,6 +96,7 @@ class PhaseRecord:
     t_bsa: float = 0.0  # B-SA kernel time this phase (serving-side programs)
     spec_hits: int = 0  # frame windows served from speculative prefetch
     spec_misses: int = 0  # frame windows synthesized inline (reconcile miss)
+    stream: int = 0  # fleet stream lane this record belongs to
 
     def as_log_entry(self) -> dict:
         """``phase_log`` dict layout."""
@@ -105,7 +107,8 @@ class PhaseRecord:
                 "phase_start": self.phase_start,
                 "t_tsa": self.t_tsa, "t_bsa": self.t_bsa,
                 "spec_hits": self.spec_hits,
-                "spec_misses": self.spec_misses}
+                "spec_misses": self.spec_misses,
+                "stream": self.stream}
 
 
 PhaseObserver = Callable[[PhaseRecord], None]
@@ -150,6 +153,31 @@ class _ScoreSink:
         self.flush()
         return [(t_end, float((to_host(pred) == y).mean()) * kf)
                 for t_end, pred, y, kf in self._entries]
+
+
+def flush_sinks_batched(kernel: InferenceKernel,
+                        sinks: Sequence[_ScoreSink]) -> None:
+    """Flush several lanes' score sinks through ONE vmapped fleet program
+    (:meth:`InferenceKernel.predict_fleet_async`) instead of one fused
+    predict per lane. Each live sink's windows are concatenated into that
+    lane's batch; predictions split back per window device-side. Empty
+    sinks are skipped and a single pending lane takes its sink's own fused
+    flush path (exactly ``_ScoreSink.flush``)."""
+    live = [s for s in sinks if s._pending]
+    if len(live) <= 1:
+        for sink in live:
+            sink.flush()
+        return
+    lane_windows = [np.concatenate([x for _, x, _, _ in s._pending], axis=0)
+                    for s in live]
+    preds = kernel.predict_fleet_async([s._params for s in live],
+                                       lane_windows)
+    for sink, pred in zip(live, preds):
+        off = 0
+        for t_end, x, y, kf in sink._pending:
+            sink._entries.append((t_end, pred[off: off + len(x)], y, kf))
+            off += len(x)
+        sink._pending.clear()
 
 
 class CLSession:
@@ -368,7 +396,7 @@ class CLSession:
                 self._repartition(spatial.rows_bsa)
             keep_frac = self.inference.plan_keep_frac(spatial, hp.fps)
             plan = self.dispatcher.begin_phase(
-                clock, pipe, decision=dec,
+                clock, pipe, decisions=(dec,),
                 fps=hp.fps if self.decision_aware_spec else None)
             spec_seen = (pipe.hits, pipe.misses)
             valid_h = xv = yv = None
@@ -520,7 +548,9 @@ class CLSystemSpec:
     trace: Union[None, bool, TraceRecorder] = None
     device: DeviceLike = None  # None = cuda
 
-    def build(self) -> CLSession:
+    def _session_kwargs(self) -> dict:
+        """The CLSession constructor keywords this spec describes — shared
+        with subclasses (FleetSpec), so a new knob is mirrored once."""
         if self.student is None or self.teacher is None:
             raise ValueError(
                 f"{type(self).__name__} needs student and teacher configs")
@@ -528,7 +558,7 @@ class CLSystemSpec:
         if est is not None and (isinstance(est, type)
                                 or not hasattr(est, "total_rows")):
             est = est()  # class or zero-arg factory -> instance
-        return CLSession(
+        return dict(
             student_cfg=self.student,
             teacher_cfg=self.teacher,
             hp=self.hp,
@@ -546,6 +576,9 @@ class CLSystemSpec:
             trace=self.trace,
             device=self.device,
         )
+
+    def build(self) -> CLSession:
+        return CLSession(**self._session_kwargs())
 
 
 # ------------------------------------------------------------------ helpers

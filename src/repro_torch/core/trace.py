@@ -33,9 +33,9 @@ The recorded :class:`SessionTrace` is the input to
 :class:`~repro_torch.core.replay.TraceReplayer` and round-trips to JSON
 losslessly (``save``/``load``: floats survive bit-exactly via their repr).
 The document is the reference's: a trace either package saves loads in the
-other. ``lane``, ``fan`` and ``shard`` belong to the fleet and manager
-tiers, which the port does not run yet; single-stream traces leave them at
-their defaults.
+other. ``lane`` and ``fan`` belong to fleets (core/fleet.py), ``shard``
+to the manager tier, which the port does not run yet (ROADMAP Queue 1,
+item 9b); single-stream traces leave them at their defaults.
 """
 from __future__ import annotations
 
@@ -52,11 +52,12 @@ TRACE_FORMAT = "dacapo-trace-v1"
 class TraceEvent:
     """One dispatched device program (or bare ledger charge) of a phase.
 
-    ``kind`` is ``"program"`` for ``dispatch`` issues (``wall_s``/``path``
-    measured) and ``"charge"`` for bare ``charge`` calls (retraining SGD,
-    profiling overhead, score windows). ``fan`` is the number of lanes the
-    issuing device program served (> 1 only for a fleet's cross-stream
-    program).
+    ``kind`` is ``"program"`` for ``dispatch``/``dispatch_multi`` issues
+    (``wall_s``/``path`` measured) and ``"charge"`` for bare ``charge``
+    calls (retraining SGD, profiling overhead, score windows). ``fan`` is
+    the number of lanes the issuing device program served (> 1 for one
+    ``dispatch_multi`` program fanned across the fleet; its measured wall
+    is split evenly across the per-lane events).
     """
 
     kind: str  # "program" | "charge"

@@ -270,17 +270,35 @@ class _FlashAttention(torch.autograd.Function):
     tensor) and whose backward is plain PyTorch
     (``ref.flash_attention_bwd_ref``), recomputing P from the saved q and
     k. The JAX package has no Pallas backward for attention — XLA
-    differentiates the ViT's einsum attention — so neither has the port."""
+    differentiates the ViT's einsum attention — so neither has the port.
+
+    Under ``torch.func.vmap`` (a fleet serving every lane's ViT in one
+    program) the :meth:`vmap` rule folds the vmapped axis into the
+    kernel's own batch axis B, runs the same kernel (or plain version)
+    once, and unfolds the result."""
 
     @staticmethod
-    def forward(ctx, q, k, v, path, opts):
+    def forward(q, k, v, path, opts):
         if path == "cuda":
-            out = _fa.flash_attention_cuda(q, k, v, **opts)
-        else:
-            out = _ref.flash_attention_ref(q, k, v, **opts)
+            return _fa.flash_attention_cuda(q, k, v, **opts)
+        return _ref.flash_attention_ref(q, k, v, **opts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, _path, opts = inputs
         ctx.save_for_backward(q, k, v)
         ctx.opts = opts
-        return out
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, path, opts):
+        def fold(t, dim):
+            t = (t.unsqueeze(0).expand(info.batch_size, *t.shape)
+                 if dim is None else t.movedim(dim, 0))
+            return t.reshape(-1, *t.shape[2:])
+
+        q, k, v = (fold(t, d) for t, d in zip((q, k, v), in_dims[:3]))
+        out = _FlashAttention.apply(q, k, v, path, opts)
+        return out.reshape(info.batch_size, -1, *out.shape[1:]), 0
 
     @staticmethod
     def backward(ctx, do):

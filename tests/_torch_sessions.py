@@ -1,6 +1,7 @@
 """Shared by the port's session parity tests: JAX-pretrained weights
-carried across, one session of each package built from one description,
-and the parity assertions (tolerances in ``tests/test_torch_session.py``).
+carried across, one session (or fleet) of each package built from one
+description, and the parity assertions (tolerances in
+``tests/test_torch_session.py`` and ``tests/test_torch_fleet_parity.py``).
 """
 import jax
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 from repro.configs.dacapo_pairs import RESNET18 as J_RESNET18
 from repro.configs.dacapo_pairs import WIDERESNET50 as J_WIDERESNET50
 from repro.core import allocation as jalloc
+from repro.core import fleet as jfleet
 from repro.core import session as jsession
 from repro.data.stream import DriftStream as JDriftStream
 from repro.data.stream import scenario as j_scenario
@@ -16,6 +18,7 @@ from repro.models.registry import make_vision_model as j_make_vision_model
 from repro_torch.configs import dacapo_pairs as tcfg
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import allocation as talloc
+from repro_torch.core import fleet as tfleet
 from repro_torch.core import session as tsession
 from repro_torch.data.stream import DriftStream, scenario
 
@@ -97,6 +100,83 @@ def assert_parity(got, want):
     assert (first_g["acc_valid"], first_g["acc_label"]) == (
         first_w["acc_valid"], first_w["acc_label"])
     assert abs(got.avg_accuracy - want.avg_accuracy) < 0.1
+
+
+def golden_streams(port: bool):
+    """The reference fleet tests' heterogeneous streams
+    (``tests/test_fleet.py::_golden_streams``): S1 / S3 / ES1, two segments
+    each, seeds 5 / 6 / 7, 24 px — the port's or the JAX package's."""
+    if port:
+        return [DriftStream(scenario(name, 2), seed=seed, img=24)
+                for name, seed in (("S1", 5), ("S3", 6), ("ES1", 7))]
+    return [JDriftStream(j_scenario(name, 2), seed=seed, img=24)
+            for name, seed in (("S1", 5), ("S3", 6), ("ES1", 7))]
+
+
+def port_fleet(golden, hp: dict, **kw):
+    """The port's fleet on the CPU (seed 0, ``eval_fps=0.5``, DC-ST lanes
+    unless ``kw`` says otherwise), with the fixture's weights."""
+    _, _, _, tp_np, sp_np = golden
+    kw = {"seed": 0, "eval_fps": 0.5, **kw}
+    port = tfleet.FleetSpec(
+        student=tcfg.RESNET18, teacher=tcfg.WIDERESNET50,
+        hp=talloc.CLHyperParams(**hp), device="cpu", **kw).build()
+    port.set_pretrained(params_from_numpy(tp_np, "cpu"),
+                        params_from_numpy(sp_np, "cpu"))
+    return port
+
+
+def fleet_pair(golden, hp: dict, **kw):
+    """The reference's and the port's fleet from one description."""
+    _, tp, sp, _, _ = golden
+    ref = jfleet.FleetSpec(
+        student=J_RESNET18, teacher=J_WIDERESNET50,
+        hp=jalloc.CLHyperParams(**hp), seed=0, eval_fps=0.5, **kw).build()
+    ref.set_pretrained(tp, sp)
+    return ref, port_fleet(golden, hp, **kw)
+
+
+FLEET_LEDGER_KEYS = ("t", "phase_start", "t_tsa", "t_bsa")
+
+
+def assert_fleet_parity(got, want, acc_tol: float):
+    """The fleet parity rules: phase count, drift events and the fleet
+    phase log (its clocks and ledgers, per-stream ledgers included, within
+    1e-6; the row decisions of every phase exactly); per stream the
+    retraining and labeling ledgers within 1e-6, every phase record's
+    clock, ledgers and speculation counts, and its drift verdict for as
+    long as both packages observe the same accuracies;
+    ``avg_accuracy`` within ``acc_tol``."""
+    assert got.n_streams == want.n_streams
+    assert got.drift_events == want.drift_events
+    assert len(got.fleet_phase_log) == len(want.fleet_phase_log) > 0
+    for g, w in zip(got.fleet_phase_log, want.fleet_phase_log):
+        assert (g["rows_tsa"], g["rows_bsa"]) == (w["rows_tsa"],
+                                                  w["rows_bsa"]), (g, w)
+        for key in FLEET_LEDGER_KEYS:
+            assert abs(g[key] - w[key]) < 1e-6, (key, g, w)
+        for key in ("per_stream_t_tsa", "per_stream_t_bsa"):
+            assert len(g[key]) == len(w[key])
+            assert all(abs(a - b) < 1e-6 for a, b in zip(g[key], w[key])), \
+                (key, g, w)
+    for lane_g, lane_w in zip(got.streams, want.streams):
+        assert lane_g.drift_events == lane_w.drift_events
+        assert abs(lane_g.retrain_time - lane_w.retrain_time) < 1e-6
+        assert abs(lane_g.label_time - lane_w.label_time) < 1e-6
+        assert len(lane_g.phase_log) == len(lane_w.phase_log)
+        same_accs = True
+        for g, w in zip(lane_g.phase_log, lane_w.phase_log):
+            assert g["stream"] == w["stream"]
+            for key in FLEET_LEDGER_KEYS + ("retrain_time", "label_time"):
+                assert abs(g[key] - w[key]) < 1e-6, (key, g, w)
+            assert (g["spec_hits"], g["spec_misses"]) == (
+                w["spec_hits"], w["spec_misses"])
+            same_accs = same_accs and (g["acc_valid"], g["acc_label"]) == (
+                w["acc_valid"], w["acc_label"])
+            if same_accs:
+                assert g["drift"] == w["drift"], (g, w)
+        assert abs(lane_g.avg_accuracy - lane_w.avg_accuracy) < acc_tol
+    assert abs(got.fleet_avg_accuracy - want.fleet_avg_accuracy) < acc_tol
 
 
 def mesh_shapes(session):

@@ -83,6 +83,25 @@ def test_default_device_raises_without_a_card():
         make_vision_model(RESNET18.reduced())
 
 
+def test_fleet_default_device_raises_without_a_card():
+    """``FleetSpec(...).build()`` runs on the card by default, and on the
+    CPU only when asked; ``rehome_tree`` lands state on the card too."""
+    _require_no_card()
+    import numpy as np
+
+    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+    from repro_torch.core.fleet import FleetSpec
+    from repro_torch.runtime import rehome_tree
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        FleetSpec(student=RESNET18, teacher=WIDERESNET50).build()
+    with pytest.raises(RuntimeError, match="cuda"):
+        rehome_tree({"w": np.zeros(2, np.float32)})
+    fleet = FleetSpec(student=RESNET18, teacher=WIDERESNET50,
+                      device="cpu").build()
+    assert fleet.device == torch.device("cpu")
+
+
 def test_chip_smoke_refuses_without_a_card():
     _require_no_card()
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],

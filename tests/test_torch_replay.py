@@ -6,7 +6,8 @@ the port saves loads in the JAX package; on a JAX-saved trace the port's
 budgets, rows and precisions, the other dispatch mode, from units), unit
 costs, DAG and calibration bit for bit, and its ``ReplayAllocator`` picks
 the reference's decision; ``CalibratedEstimator`` and
-``PlacementCostModel`` agree float for float.
+``PlacementCostModel`` agree float for float; a fleet's ``FleetDecision``
+is priced as the reference prices it.
 
 Fixture: the reference's trace fixture (``tests/test_trace.py``):
 ``scenario("S1", 2)``, seed 5, 24 px, ``CLHyperParams(n_t=32, n_l=16,
@@ -268,12 +269,28 @@ def test_estimator_wrappers_match_reference():
 
 
 def test_fleet_candidate_not_ported(traces):
-    """A fleet's FleetDecision (anything with ``per_lane``) is item 8's."""
-    class FleetLike:
-        def per_lane(self):
-            return []
+    """A fleet's FleetDecision is a candidate as the reference takes it:
+    each lane's view keyed by lane, each candidate of ``_candidates`` as a
+    one-lane and a two-lane fleet decision, predicted as the reference
+    predicts it."""
+    from repro.core import decision as jdec
+    from repro_torch.core import decision as tdec
 
-    _, path, _ = traces["concurrent"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        treplay.TraceReplayer(ttrace.SessionTrace.load(str(path))).predict(
-            0, FleetLike())
+    def fleet(dec_mod, decs):
+        planes = [d.split() for d in decs]
+        return dec_mod.FleetDecision(
+            spatial=planes[0].spatial,
+            temporal=tuple(p.temporal for p in planes),
+            lane_decisions=tuple(decs))
+
+    for mode in MODES:
+        _, path, _ = traces[mode]
+        jr, tr = _replayers(path, True)
+        cands = list(zip(_candidates(jalloc), _candidates(talloc)))
+        for (jd, td), (jd2, td2) in zip(cands, cands[1:] + cands[:1]):
+            for jf, tf in ((fleet(jdec, [jd]), fleet(tdec, [td])),
+                           (fleet(jdec, [jd, jd2]), fleet(tdec, [td, td2]))):
+                for i in range(len(jr)):
+                    assert tr.predict(i, tf) == jr.predict(i, jf), (i, td)
+                    assert tr.predict(i, tf, from_units=True) == \
+                        jr.predict(i, jf, from_units=True)

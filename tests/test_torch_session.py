@@ -168,10 +168,34 @@ def test_allocator_decisions_match_jax(name):
             assert td.split().to_legacy() == td
 
 
-@pytest.mark.parametrize("name", ["fleet", "fleet-uniform"])
-def test_unported_allocators_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        talloc.make_allocator(name, talloc.CLHyperParams())
+# Every spelling of a fleet policy the reference's ``make_allocator``
+# takes — the class, or a ready instance in each mode — and the fleet
+# names, which its registry does not hold (it raises KeyError on them).
+FLEET_SPELLINGS = ["class"] + [f"instance-{m}" for m in talloc.FLEET_MODES] \
+    + ["name-fleet", "name-fleet-uniform"]
+
+
+@pytest.mark.parametrize("spelling", FLEET_SPELLINGS)
+def test_fleet_allocator_names_resolve(spelling):
+    kind, _, arg = spelling.partition("-")
+
+    def resolve(pkg):
+        hp = pkg.CLHyperParams()
+        if kind == "class":
+            return pkg.make_allocator(pkg.FleetAllocator, hp)
+        if kind == "instance":
+            return pkg.make_allocator(pkg.FleetAllocator(hp, mode=arg), hp)
+        return pkg.make_allocator(arg, hp)
+
+    if kind == "name":
+        for pkg in (jalloc, talloc):
+            with pytest.raises(KeyError, match="unknown allocator"):
+                resolve(pkg)
+        return
+    want, got = resolve(jalloc), resolve(talloc)
+    assert isinstance(want, jalloc.FleetAllocator)
+    assert isinstance(got, talloc.FleetAllocator)
+    assert (got.mode, got.name) == (want.mode, want.name)
 
 
 def test_serving_cache_keys_on_tree_identity(golden_setup):
