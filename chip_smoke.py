@@ -136,6 +136,20 @@ exits non-zero without printing a result:
    fleet equal to the untraced one, each labeling group fanned over the 3
    lanes with its wall split evenly, every phase replayed bit for bit
    (also under its ``FleetDecision``), and the host time by label.
+12. manager — the sharded manager tier (``core/manager.py``) on the card,
+   through ``ManagerSpec(fleet=FleetSpec(...), ...).build()`` over phase
+   11's fleet (MX6, 40 s): a 1-shard manager, without and with per-lane
+   checkpoints, equal to phase 11's bare sequential fleet bit for bit (the
+   checkpoints' wall a save printed); 2 shards with
+   shard 1 lost at round 3 and its lanes restored from their checkpoints,
+   serially and with ``parallel_shards=2``, bit for bit (records,
+   decisions, both ledgers, events, every lane's student tree); the
+   ``estimator`` placement policy with a camera admitted at t=10 and live
+   migrations, twice bit for bit; the failover traced, serial and pooled:
+   traced == untraced and the merged traces equal; in every run one "cuda"
+   quantize and dequantize launch per fill (restored and migrated lanes
+   included) and the two-level ledger conserved; each run's wall per 40 s,
+   serial beside pooled, with the card's ``nvidia-smi`` line.
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -1949,9 +1963,11 @@ def fleet_traced(out: dict, untraced: dict) -> None:
         "replay bit for bit, also under the FleetDecision each executed")
 
 
-def fleet_phase(est) -> dict:
+def fleet_phase(est):
     """Phase 11: fleets on the card (parts 1-4 above). Returns each part's
-    launch counts, walls, rates and the traced host breakdown."""
+    launch counts, walls, rates and the traced host breakdown, and each
+    dispatch mode's first 3-stream run (phase 12 holds its 1-shard manager
+    to the sequential one)."""
     out = {"launches": {}, "walls": {}}
     firsts = fleet_pairs(out)
     fleet_batched(out, firsts["concurrent"])
@@ -1960,6 +1976,298 @@ def fleet_phase(est) -> dict:
     out["full_width"] = full["rows"]
     fleet_traced(out, firsts["concurrent"])
     print("[fleet] summary " + json.dumps(out, default=float), flush=True)
+    return out, firsts
+
+
+# Phase 12: the manager tier on the card. Phase 11's fleet (the same
+# FleetSpec, pretraining and streams) under FleetManager: scenario (a) of
+# tests/test_torch_manager_parity.py (2 shards, 3 streams, shard 1 lost at
+# round 3, per-lane checkpoints every 2 rounds, recovery 2.0 s a lane) and
+# scenario (b) (2 shards, the estimator policy with migration_cost_s 0.5
+# and oversub_limit 10, one camera due at t=10).
+MANAGER_FAIL = dict(n_shards=2, checkpoint_every=2, recovery_cost_s=2.0,
+                    migration=False)
+MANAGER_PLACE = dict(n_shards=2, placement="estimator",
+                     placement_kwargs={"migration_cost_s": 0.5,
+                                       "oversub_limit": 10.0},
+                     migration=True, migration_cooldown=2,
+                     migration_cost_s=0.5)
+
+
+def manager_run(lanes: int = FLEET_LANES, fail_at=None,
+                checkpoints: bool = False, admit: bool = False,
+                **manager) -> dict:
+    """One repeatable manager run: ``ManagerSpec(fleet=FleetSpec(...),
+    **manager).build()`` over phase 11's fleet spec (drift-weighted,
+    resolve-max, MX6, sequential, on the card), a fresh
+    ``np.random.default_rng(0)`` pretraining the teacher and student on the
+    card as :func:`fleet_run` does (10 and 8 steps of 32), then ``lanes``
+    streams for ``FLEET_S`` virtual seconds (launch counts and kernel_stats
+    set to 0 just before). ``fail_at`` is the ``FailureInjector``'s list;
+    ``checkpoints`` puts the per-lane checkpoints in a fresh temporary
+    directory; ``admit`` adds ES1 (seed 9) due at t=10. Returns the
+    manager, its result, the run's host wall, the fills of every shard
+    (the dead one's too), launch counts, kernel_stats and each surviving
+    lane's final student tree by camera."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+    from repro_torch.core.allocation import CLHyperParams
+    from repro_torch.core.fleet import FleetSpec
+    from repro_torch.core.manager import ManagerSpec
+    from repro_torch.core.session import pretrain_model
+    from repro_torch.data.stream import DriftStream, scenario
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault import FailureInjector
+
+    fleet = FleetSpec(student=RESNET18, teacher=WIDERESNET50,
+                      fleet_mode="drift-weighted", row_policy="resolve-max",
+                      apply_mx=True, device="cuda", seed=0, eval_fps=0.5,
+                      hp=CLHyperParams(**FLEET_HP))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        mgr = ManagerSpec(
+            fleet=fleet, checkpoint_dir=ckpt if checkpoints else None,
+            failure_injector=(None if fail_at is None
+                              else FailureInjector(fail_at)),
+            **manager).build()
+        first = mgr.shards[0].session
+        stream = DriftStream(scenario("S1", 2), seed=5, img=24)
+        rng = np.random.default_rng(0)
+        tp = pretrain_model(first.teacher, stream, 10, 32, rng)
+        sp = pretrain_model(first.student, stream, 8, 32, rng,
+                            segments=stream.segments[:1], seed=8)
+        mgr.set_pretrained(tp, sp)
+        torch.cuda.synchronize()
+        fills = sum(session_fills(s.session) for s in mgr.shards)
+        mxq.reset_launch_counts()
+        ops.reset_kernel_stats()
+        admissions = ([(10.0, "late", DriftStream(scenario("ES1", 2),
+                                                  seed=9, img=24))]
+                      if admit else ())
+        t0 = time.perf_counter()
+        res = mgr.run(fleet_streams(lanes), duration=FLEET_S,
+                      admissions=admissions)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    params = {lane.key: lane.params for shard in mgr.shards
+              if shard.alive and shard.run is not None
+              for lane in shard.run.lanes}
+    return {"mgr": mgr, "res": res, "wall": wall,
+            "fills": sum(session_fills(s.session) for s in mgr.shards)
+            - fills, "launches": mxq.launch_counts(),
+            "stats": ops.kernel_stats(), "params": params}
+
+
+def manager_differences(first: dict, second: dict) -> list:
+    """What differs between two :func:`manager_run` results: rounds,
+    events, the ``ManagerDecision`` stream, both ledgers, every lane's
+    records (their phase logs), accuracy timeline and final student tree,
+    the fleet accuracy and the launch counts."""
+    from repro_torch.tree import tree_leaves
+
+    a, b = first["res"], second["res"]
+    diffs = []
+    for name in ("rounds", "events", "decisions", "ledger", "shard_ledgers",
+                 "fleet_avg_accuracy"):
+        if getattr(a, name) != getattr(b, name):
+            diffs.append(f"{name} differ")
+    if set(a.lane_results) != set(b.lane_results) or set(
+            first["params"]) != set(second["params"]):
+        return diffs + [f"lanes {sorted(a.lane_results)} != "
+                        f"{sorted(b.lane_results)}"]
+    for key, la in a.lane_results.items():
+        lb = b.lane_results[key]
+        if la.phase_log != lb.phase_log:
+            diffs.append(f"lane {key}: phase logs differ")
+        if la.accuracy_timeline != lb.accuracy_timeline:
+            diffs.append(f"lane {key}: accuracy timelines differ")
+        pa, pb = (tree_leaves(run["params"][key]) for run in (first, second))
+        if len(pa) != len(pb) or not all(bitwise(x, y)
+                                         for x, y in zip(pa, pb)):
+            diffs.append(f"lane {key}: student trees differ")
+    if first["launches"] != second["launches"]:
+        diffs.append(f"launches {first['launches']} != "
+                     f"{second['launches']}")
+    return diffs
+
+
+def manager_checks(tag: str, run: dict) -> None:
+    """Fills through the kernels (restored and migrated lanes included),
+    the two-level ledger conserved, every camera scored."""
+    import numpy as np
+
+    res = run["res"]
+    fill_checks(tag, run["fills"], run["launches"], run["stats"])
+    if not res.conservation_gap() <= 1e-9:
+        raise AssertionError(f"{tag}: conservation gap "
+                             f"{res.conservation_gap()!r}")
+    extra = res.ledger["recovery_cost"] + res.ledger["migration_cost"]
+    if abs(res.ledger["total"] - res.ledger["t_tsa"] - extra) > 1e-9 * max(
+            1.0, res.ledger["total"]):
+        raise AssertionError(f"{tag}: ledger {res.ledger}")
+    if not res.lane_results or not all(
+            lane.records and np.isfinite(lane.avg_accuracy)
+            for lane in res.lane_results.values()):
+        raise AssertionError(f"{tag}: bad lane results")
+
+
+def manager_summary(run: dict) -> str:
+    res = run["res"]
+    kinds = {}
+    for e in res.events:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    return (f"rounds {res.rounds} ({res.parallel_rounds} pooled), events "
+            f"{kinds}, lane accuracies "
+            f"{ {k: v.avg_accuracy for k, v in res.lane_results.items()} }, "
+            f"ledger {res.ledger}, wall {run['wall']:.4f} s, fills "
+            f"{run['fills']}, launches {run['launches']}")
+
+
+def trace_differences(a, b) -> list:
+    """Merged manager traces, phase for phase and event for event, the
+    events' measured ``wall_s`` aside."""
+    import dataclasses
+
+    if len(a.phases) != len(b.phases):
+        return [f"{len(a.phases)} != {len(b.phases)} phases"]
+    for i, (pa, pb) in enumerate(zip(a.phases, b.phases)):
+        if (pa.shard, pa.start, pa.end, len(pa.events)) != (
+                pb.shard, pb.start, pb.end, len(pb.events)) or any(
+                dataclasses.replace(ea, wall_s=0.0)
+                != dataclasses.replace(eb, wall_s=0.0)
+                for ea, eb in zip(pa.events, pb.events)):
+            return [f"merged trace phase {i} differs"]
+    return []
+
+
+def manager_phase(bare: dict) -> dict:
+    """Phase 12 (``bare``: phase 11's first sequential fleet run): (i) a
+    1-shard manager equals the bare fleet bit for bit, without and with
+    per-lane checkpoints every round (their wall cost a save printed);
+    (ii) scenario (a) serially and with ``parallel_shards=2`` bit for bit;
+    (iii) scenario (b) twice, bit for bit, one admission and at least one
+    migration; (iv) scenario (a) traced, serial and pooled: the traced
+    pooled run equals the untraced one and its merged trace the serial
+    one; (v) every run's fills one "cuda" quantize and dequantize launch
+    each. Returns each run's launch counts and wall."""
+    from repro_torch.tree import tree_leaves
+
+    out = {"launches": {}, "walls": {}}
+
+    def keep(tag, run):
+        log("manager", f"{tag}: {manager_summary(run)}")
+        manager_checks(tag, run)
+        out["launches"][tag] = run["launches"]
+        out["walls"][tag] = run["wall"]
+
+    # (i) 1-shard degeneracy against phase 11's bare fleet, without and
+    # with per-lane checkpoints (every round: their cost on the wall).
+    ones = {}
+    for checkpoints in (False, True):
+        tag = "manager_one_shard" + ("_ckpt" if checkpoints else "")
+        one = ones[checkpoints] = manager_run(n_shards=1,
+                                              checkpoints=checkpoints)
+        keep(tag, one)
+        got = one["res"].shard_results[0]
+        want = bare["res"]
+        diffs = []
+        if got.fleet_phase_log != want.fleet_phase_log:
+            diffs.append("fleet phase logs differ")
+        for i, (lg, lw) in enumerate(zip(got.streams, want.streams)):
+            if (lg.phase_log, lg.accuracy_timeline) != (
+                    lw.phase_log, lw.accuracy_timeline):
+                diffs.append(f"lane {i}: phase log or timeline differs")
+            pa = tree_leaves(one["params"][f"cam{i}"])
+            pb = tree_leaves(bare["params"][i])
+            if len(pa) != len(pb) or not all(bitwise(x, y)
+                                             for x, y in zip(pa, pb)):
+                diffs.append(f"lane {i}: student trees differ")
+        if (len(got.streams) != len(want.streams)
+                or one["launches"] != bare["launches"]
+                or one["fills"] != bare["fills"]):
+            diffs.append(f"lanes / launches / fills {one['launches']} "
+                         f"{one['fills']} != {bare['launches']} "
+                         f"{bare['fills']}")
+        if diffs:
+            raise AssertionError(f"{tag} != the bare fleet: "
+                                 + "; ".join(diffs))
+    saves = sum(e.kind == "checkpoint" for e in ones[True]["res"].events
+                ) * len(bare["res"].streams)
+    log("manager", f"manager_one_shard: equal to phase 11's bare sequential "
+        f"fleet bit for bit (fleet phase log, every lane's phase log, "
+        f"timeline and student tree, launches, fills), with and without "
+        f"per-lane checkpoints; walls {bare['wall']:.4f} s bare, "
+        f"{ones[False]['wall']:.4f} s, {ones[True]['wall']:.4f} s with "
+        f"{saves} lane checkpoints "
+        f"({(ones[True]['wall'] - ones[False]['wall']) / saves * 1e3:.2f} "
+        f"ms of wall each)")
+
+    # (ii) scenario (a), serial against pooled.
+    runs = {w: manager_run(fail_at=[(3, 1)], checkpoints=True,
+                           parallel_shards=w, **MANAGER_FAIL)
+            for w in (0, 2)}
+    for w, run in runs.items():
+        keep(f"manager_failover_x{w}", run)
+    serial, pooled = runs[0]["res"], runs[2]["res"]
+    kinds = [e.kind for e in serial.events]
+    recovered = [p for d in serial.decisions for p in d.placements
+                 if p.kind == "recover"]
+    if (kinds.count("fail") != 1 or not recovered
+            or serial.shard_results[1] is not None
+            or any(p.reason != "restored from checkpoint"
+                   for p in recovered) or not pooled.parallel_rounds):
+        raise AssertionError(f"manager_failover: events {kinds}, "
+                             f"recoveries {recovered}")
+    diffs = manager_differences(runs[0], runs[2])
+    if diffs:
+        raise AssertionError("manager_failover: serial != parallel_shards=2:"
+                             " " + "; ".join(diffs))
+    log("manager", f"manager_failover: serial == parallel_shards=2 bit for "
+        f"bit (records, decisions, both ledgers, events, every lane's "
+        f"student tree, launches); shard 1 lost at round 3, "
+        f"{len(recovered)} lanes restored from their checkpoints; walls "
+        f"{runs[0]['wall']:.4f} s serial, {runs[2]['wall']:.4f} s pooled "
+        f"per {FLEET_S:g} s of virtual time | {nvidia_smi_line()}")
+
+    # (iii) scenario (b), twice.
+    placed = [manager_run(admit=True, **MANAGER_PLACE) for _ in range(2)]
+    for i, run in enumerate(placed):
+        keep(f"manager_placement_{i + 1}", run)
+    diffs = manager_differences(*placed)
+    acts = [p.kind for d in placed[0]["res"].decisions for p in d.placements]
+    if diffs or acts.count("admit") != 1 or "migrate" not in acts:
+        raise AssertionError(f"manager_placement: placements {acts}; "
+                             + "; ".join(diffs))
+    log("manager", f"manager_placement: two runs bit for bit; placements "
+        f"{acts}; walls {placed[0]['wall']:.4f} / {placed[1]['wall']:.4f} s")
+
+    # (iv) scenario (a) traced, serial and pooled.
+    traced = {w: manager_run(fail_at=[(3, 1)], checkpoints=True,
+                             parallel_shards=w, trace=True, **MANAGER_FAIL)
+              for w in (0, 2)}
+    for w, run in traced.items():
+        keep(f"manager_traced_x{w}", run)
+    diffs = manager_differences(runs[2], traced[2]) + trace_differences(
+        traced[0]["mgr"].trace, traced[2]["mgr"].trace)
+    merged = traced[2]["mgr"].trace
+    if diffs or {ph.shard for ph in merged.phases} != {0, 1}:
+        raise AssertionError("manager_traced: " + "; ".join(diffs))
+    replay_checks("manager_traced", merged)
+    out["breakdown"] = host_breakdown("manager_traced_x2", merged,
+                                      traced[2]["wall"], phase="manager")
+    log("manager", f"manager_traced: the traced pooled run equals the "
+        f"untraced one bit for bit, and its merged trace ({len(merged)} "
+        f"phases over shards 0 and 1) the serial run's; walls "
+        f"{traced[0]['wall']:.4f} s serial, {traced[2]['wall']:.4f} s pooled")
+    fills = {tag: counts["mx_quantize"]
+             for tag, counts in out["launches"].items()}
+    log("manager", f"one cuda quantize and one cuda dequantize launch per "
+        f"fill in every run, restored and migrated lanes included: {fills}")
+    print("[manager] summary " + json.dumps(out, default=float), flush=True)
     return out
 
 
@@ -2546,9 +2854,15 @@ def main() -> None:
 
     # ------------------------------------------------------------ 11 fleet
     t0 = time.perf_counter()
-    fleet = fleet_phase(est)
+    fleet, fleet_firsts = fleet_phase(est)
     fleet_launches = fleet["launches"]
     log("fleet", f"phase done in {time.perf_counter() - t0:.2f} s")
+
+    # ---------------------------------------------------------- 12 manager
+    t0 = time.perf_counter()
+    manager_launches = manager_phase(fleet_firsts["sequential"])["launches"]
+    del fleet_firsts
+    log("manager", f"phase done in {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     for name, ms, plain_ms, replaces in (
@@ -2570,6 +2884,8 @@ def main() -> None:
                                for part, counts in trace_launches.items()},
             "launches_fleet": {part: counts[name]
                                for part, counts in fleet_launches.items()},
+            "launches_manager": {part: counts[name] for part, counts in
+                                 manager_launches.items()},
             "trees": [{key: row[key] for key in (
                 "tree", "leaves", "elements", "launches", "bound_ms",
                 "q_ms" if name == "mx_quantize" else "dq_ms") if key in row}

@@ -1,7 +1,8 @@
 """The CL system: MX serving precision, Algorithm 1 allocation policies,
 the three CL kernels, mesh spatial partitioning, the estimators, the
 CLSession engine behind the CLSystemSpec front door, the fleet engine
-behind FleetSpec, and the trace spine with its replayer."""
+behind FleetSpec, the sharded manager tier behind ManagerSpec, and the
+trace spine with its replayer."""
 from repro_torch.core.allocation import (  # noqa: F401
     ALLOCATORS,
     FLEET_MODES,
@@ -29,6 +30,8 @@ from repro_torch.core.decision import (  # noqa: F401
     FleetDecision,
     FleetRowContext,
     FleetRowPolicy,
+    ManagerDecision,
+    PlacementAction,
     SpatialPlan,
     TemporalPlan,
     as_decision,
@@ -54,6 +57,14 @@ from repro_torch.core.fleet import (  # noqa: F401
     FleetSession,
     FleetSpec,
     LaneSnapshot,
+)
+from repro_torch.core.manager import (  # noqa: F401
+    PLACEMENT_POLICIES,
+    FleetManager,
+    ManagerResult,
+    ManagerSpec,
+    PlacementPolicy,
+    make_placement_policy,
 )
 from repro_torch.core.kernel import (  # noqa: F401
     InferenceKernel,

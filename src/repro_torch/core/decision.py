@@ -1,7 +1,7 @@
-"""The two-plane decision API: SpatialPlan / TemporalPlan / Decision, and
-the fleet's FleetDecision with its pluggable row policies (the JAX
-package's ``core/decision.py`` but for the manager tier's
-``ManagerDecision`` / ``PlacementAction``, ROADMAP Queue 1, item 9b).
+"""The two-plane decision API: SpatialPlan / TemporalPlan / Decision, the
+fleet's FleetDecision with its pluggable row policies, and the manager
+tier's ManagerDecision / PlacementAction (the JAX package's
+``core/decision.py``).
 
 * :class:`SpatialPlan` — where compute lives for a phase: the T-SA/B-SA
   row split, the per-kernel MX precisions, and the mesh re-fission intent;
@@ -153,6 +153,48 @@ class FleetDecision:
         combined with each lane's temporal plane."""
         return tuple(Decision(spatial=self.spatial, temporal=t)
                      for t in self.temporal)
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementAction:
+    """One lane-placement act in a manager round: an admission, a live
+    migration, a fault-recovery re-home, or an admission *rejection*
+    (the placement policy judged every shard oversubscribed — the camera
+    is turned away rather than degrading the whole fleet). ``key`` is the
+    lane's stable camera id; ``from_shard`` is ``None`` for admissions
+    and rejections, ``to_shard`` is ``None`` for rejections only."""
+
+    kind: str  # "admit" | "migrate" | "recover" | "reject"
+    key: object
+    to_shard: Optional[int]
+    from_shard: Optional[int] = None
+    reason: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ManagerDecision:
+    """One manager round: :class:`FleetDecision` generalized to a
+    per-shard tuple, plus the round's placement actions.
+
+    The manager tier owns N shards (each one
+    :class:`~repro_torch.core.fleet.FleetSession`), and each round every
+    live shard executes its own :class:`FleetDecision` — there is no
+    manager-wide spatial plane because the arrays are disjoint; what the
+    manager decides is *where lanes live* (``placements``, emitted by a
+    pluggable :class:`~repro_torch.core.manager.PlacementPolicy`).
+    ``shards[i]`` is ``None`` for a dead or drained shard.
+    """
+
+    shards: Tuple[Optional[FleetDecision], ...]
+    placements: Tuple[PlacementAction, ...] = ()
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def n_lanes(self) -> int:
+        return sum(d.n_lanes for d in self.shards if d is not None)
 
 
 @dataclasses.dataclass(frozen=True)

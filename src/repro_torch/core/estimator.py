@@ -210,9 +210,9 @@ class PlacementCostModel:
     * **admission** control compares a shard's predicted T-SA
       *utilization* — T-SA seconds per phase over the phase's modeled
       wall — against ``oversub_limit``: above it, the shard's T-SA cannot
-      keep up with real time and a new lane would degrade every tenant.
-
-    The manager tier itself is not ported yet (ROADMAP Queue 1, item 9).
+      keep up with real time and a new lane would degrade every tenant,
+      so the fleet turns the camera away instead
+      (``PlacementAction(kind="reject")``).
     """
 
     migration_cost_s: float = 0.0

@@ -407,7 +407,9 @@ def sgd_momentum_step(model, params, opt, x: torch.Tensor, y: torch.Tensor,
                       lr: float):
     """One SGD-with-momentum step on the cross-entropy of ``model``:
     ``m = 0.9 m + g``, ``p = p - lr m``. Functional — returns a NEW params
-    tree and momentum tree and the loss; the inputs are not modified."""
+    tree and momentum tree and the loss; the inputs are not modified. Grad
+    mode is per thread, so the step enables it itself: it runs alike on
+    the caller's thread and on a manager's worker thread."""
     leaves = []
 
     def track(p):
@@ -415,10 +417,11 @@ def sgd_momentum_step(model, params, opt, x: torch.Tensor, y: torch.Tensor,
         leaves.append(leaf)
         return leaf
 
-    live = tree_map(track, params)
-    logp = F.log_softmax(model.apply(live, x), dim=-1)
-    loss = -logp.gather(1, y[:, None]).mean()
-    flat_grads = iter(torch.autograd.grad(loss, leaves))
+    with torch.enable_grad():
+        live = tree_map(track, params)
+        logp = F.log_softmax(model.apply(live, x), dim=-1)
+        loss = -logp.gather(1, y[:, None]).mean()
+        flat_grads = iter(torch.autograd.grad(loss, leaves))
     grads = tree_map(lambda _: next(flat_grads), params)  # same visit order
     with torch.no_grad():
         new_opt = tree_map(lambda m, g: 0.9 * m + g, opt, grads)

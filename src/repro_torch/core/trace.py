@@ -15,11 +15,11 @@ bare charge), in issue order, per phase:
   issue latency on the host, not device time: the host-side cost the phase
   paid. Nothing synchronizes the card to make it look like device time;
 * the **kernel path** that served it — the path of
-  :func:`repro_torch.kernels.ops.kernel_stats` most incremented while the
-  thunk ran: ``"cuda"`` (a hand-written kernel launched) or ``"plain"``
-  (the plain PyTorch version, on a CPU tensor), where the reference
-  records ``"pallas"``, ``"interpret"`` or ``"ref"``; ``""`` when no
-  kernel of ``ops`` was called;
+  :func:`repro_torch.kernels.ops.kernel_stats` most incremented on the
+  issuing thread while the thunk ran: ``"cuda"`` (a hand-written kernel
+  launched) or ``"plain"`` (the plain PyTorch version, on a CPU tensor),
+  where the reference records ``"pallas"``, ``"interpret"`` or ``"ref"``;
+  ``""`` when no kernel of ``ops`` was called;
 * the **unit count** the cost was computed from (frames scored, samples
   labeled, SGD batches) — what lets the replayer re-scale a recorded cost
   to a *candidate* decision's budgets.
@@ -34,8 +34,8 @@ The recorded :class:`SessionTrace` is the input to
 losslessly (``save``/``load``: floats survive bit-exactly via their repr).
 The document is the reference's: a trace either package saves loads in the
 other. ``lane`` and ``fan`` belong to fleets (core/fleet.py), ``shard``
-to the manager tier, which the port does not run yet (ROADMAP Queue 1,
-item 9b); single-stream traces leave them at their defaults.
+to the manager tier (core/manager.py); single-stream traces leave them at
+their defaults.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ import dataclasses
 import json
 from typing import Dict, List, Optional, Sequence
 
-from repro_torch.kernels.ops import kernel_stats
+from repro_torch.kernels.ops import thread_path_totals
 
 TRACE_FORMAT = "dacapo-trace-v1"
 
@@ -87,7 +87,8 @@ class PhaseTrace:
     the same float-add sequence reconstructs ``end`` bit-exactly (the
     sequential SUM and the concurrent MAX both — see core/replay.py).
     ``decisions`` summarizes the two-plane decision(s) the phase executed;
-    ``shard`` is stamped by the reference's manager tier.
+    ``shard`` is stamped by the manager tier when it merges its shards'
+    traces (:attr:`~repro_torch.core.manager.FleetManager.trace`).
     """
 
     index: int
@@ -182,16 +183,6 @@ def summarize_decision(decision) -> dict:
             "profile_cost_s": t.profile_cost_s}
 
 
-def _path_totals() -> Dict[str, int]:
-    """Aggregate :func:`kernel_stats` counters per serving path (``"cuda"``
-    and ``"plain"`` in the port)."""
-    totals: Dict[str, int] = {}
-    for paths in kernel_stats().values():
-        for path, n in paths.items():
-            totals[path] = totals.get(path, 0) + n
-    return totals
-
-
 class TraceRecorder:
     """Collects :class:`PhaseTrace`s from the dispatch layer.
 
@@ -228,14 +219,14 @@ class TraceRecorder:
 
     def paths_before(self) -> Optional[Dict[str, int]]:
         """Kernel-path snapshot before an issue (None when not captured)."""
-        return _path_totals() if self.capture_paths else None
+        return thread_path_totals() if self.capture_paths else None
 
     @staticmethod
     def dominant_path(before: Optional[Dict[str, int]]) -> str:
         """The kernel path most incremented since ``before`` ('' if none)."""
         if before is None:
             return ""
-        after = _path_totals()
+        after = thread_path_totals()
         deltas = {p: n - before.get(p, 0) for p, n in after.items()
                   if n - before.get(p, 0) > 0}
         if not deltas:

@@ -28,15 +28,33 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import BLOCK, MXTensor
 
 # Process-wide dispatch counters; every read-modify-write holds the lock so
-# concurrent callers never lose an increment.
+# concurrent callers never lose an increment. Each thread also keeps its
+# own per-path totals (never reset), so a caller can tell which path served
+# the calls it made itself while other threads issue work too.
 _stats_lock = threading.Lock()
 _kernel_stats: Dict[str, Dict[str, int]] = {}
+_thread_paths = threading.local()
 
 
 def _count(op: str, path: str) -> None:
     with _stats_lock:
         by_path = _kernel_stats.setdefault(op, {})
         by_path[path] = by_path.get(path, 0) + 1
+    mine = getattr(_thread_paths, "totals", None)
+    if mine is None:
+        mine = _thread_paths.totals = {}
+    mine[path] = mine.get(path, 0) + 1
+
+
+def thread_path_totals() -> Dict[str, int]:
+    """Calls served per path (``"cuda"`` / ``"plain"``) on the calling
+    thread since it started; :func:`reset_kernel_stats` leaves them.
+
+    The trace recorder reads these, not :func:`kernel_stats`'s
+    process-wide sum: a program is issued on the thread that records it,
+    and under the manager's ``parallel_shards`` other shards' threads
+    launch kernels at the same time, which must not leak into its path."""
+    return dict(getattr(_thread_paths, "totals", None) or {})
 
 
 def kernel_stats() -> Dict[str, Dict[str, int]]:

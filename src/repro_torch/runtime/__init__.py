@@ -1,5 +1,15 @@
-"""Runtime support for the fleet tier: landing restored lane state on a
-device (``elastic.rehome_tree``). The rest of the JAX package's
-``runtime`` (fault injection, heartbeats, resharding onto a mesh) comes
-with the sharded manager tier (ROADMAP Queue 1, item 9a)."""
-from repro_torch.runtime.elastic import rehome_tree  # noqa: F401
+"""Runtime support for the fleet and manager tiers: fault injection,
+heartbeats and the resilient loop (``fault``), and landing state on a
+device or a mesh (``elastic``)."""
+from repro_torch.checkpoint import CheckpointManager  # noqa: F401
+from repro_torch.runtime.elastic import (  # noqa: F401
+    rehome_tree,
+    reshard_tree,
+)
+from repro_torch.runtime.fault import (  # noqa: F401
+    FailureInjector,
+    Heartbeat,
+    InjectedFailure,
+    StragglerDetector,
+    resilient_loop,
+)

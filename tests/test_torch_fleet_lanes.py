@@ -2,7 +2,8 @@
 lane snapshots without touching the live lane, detaches and attaches back
 from its snapshot and pipeline (``rehome_tree`` landing its host state on
 the device) and resumes bit for bit; a fresh camera joins mid-run; an
-empty run is populated by ``attach_lane``; ``rehome_tree`` itself.
+empty run is populated by ``attach_lane``; ``rehome_tree`` itself, onto a
+device and onto a mesh.
 
 Weights: ``small_setup`` (JAX pretraining 10 / 8 steps on
 ``scenario("S1", 2)``), carried across. Tolerances: exact.
@@ -13,7 +14,9 @@ import torch
 
 from _torch_sessions import (golden_streams, jax_pretrained,  # noqa: F401
                              one_torch_thread, port_fleet)
+from repro_torch.core.partition import forced_row_mesh
 from repro_torch.runtime import rehome_tree
+from repro_torch.runtime.elastic import PartitionSpec
 from repro_torch.tree import tree_leaves
 
 HP = dict(n_t=32, n_l=16, c_b=128, epochs=1)
@@ -119,5 +122,11 @@ def test_rehome_tree():
     assert np.array_equal(out["w"].numpy(), tree["w"])
     assert not np.shares_memory(out["w"].numpy(), tree["w"])
     assert torch.equal(out["b"][1], tree["b"][1])
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        rehome_tree(tree, mesh=object(), spec_tree={}, device="cpu")
+    mesh = forced_row_mesh(1, "cpu")
+    on_mesh = rehome_tree(tree, mesh=mesh, spec_tree={
+        "w": PartitionSpec("data", None), "b": [PartitionSpec(None),
+                                                 PartitionSpec()]})
+    for got, want in zip(tree_leaves(on_mesh), tree_leaves(tree)):
+        assert isinstance(got, torch.Tensor)
+        assert got.device == mesh.devices[0, 0]
+        assert np.array_equal(got.numpy(), np.asarray(want))

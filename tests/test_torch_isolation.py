@@ -1,8 +1,9 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
-``attention_mutants.py``, ``gemm_ablation.py``, ``pair_per_gemm.py`` and
-``examples/continuous_learning_drive_torch.py`` import neither ``jax`` nor
-the JAX package, and its entry points default to the card and refuse to
-run without one."""
+``attention_mutants.py``, ``gemm_ablation.py``, ``pair_per_gemm.py``,
+``examples/continuous_learning_drive_torch.py`` and
+``examples/fleet_drive_torch.py`` import neither ``jax`` nor the JAX
+package, and its entry points default to the card and refuse to run
+without one."""
 import ast
 import subprocess
 import sys
@@ -15,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "attention_mutants.py",
     ROOT / "gemm_ablation.py", ROOT / "pair_per_gemm.py",
-    ROOT / "examples" / "continuous_learning_drive_torch.py"]
+    ROOT / "examples" / "continuous_learning_drive_torch.py",
+    ROOT / "examples" / "fleet_drive_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -66,6 +68,21 @@ def test_drive_example_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_fleet_drive_example_pulls_in_no_jax():
+    """The ported fleet driver and the manager tier it runs (checkpoints,
+    fault injection, elastic re-homing) load nothing of JAX."""
+    code = ("import sys, fleet_drive_torch; "
+            "import repro_torch.core.manager, repro_torch.checkpoint, "
+            "repro_torch.runtime.fault, repro_torch.runtime.elastic; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'examples'}",
+                       "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def _require_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -100,6 +117,27 @@ def test_fleet_default_device_raises_without_a_card():
     fleet = FleetSpec(student=RESNET18, teacher=WIDERESNET50,
                       device="cpu").build()
     assert fleet.device == torch.device("cpu")
+
+
+def test_manager_default_device_raises_without_a_card():
+    """``ManagerSpec(...).build()`` and ``FleetManager(...)`` build their
+    shards on the card by default, and on the CPU only when the fleet
+    spec asks."""
+    _require_no_card()
+    from repro_torch.configs.dacapo_pairs import RESNET18, WIDERESNET50
+    from repro_torch.core.fleet import FleetSpec
+    from repro_torch.core.manager import FleetManager, ManagerSpec
+
+    fleet = FleetSpec(student=RESNET18, teacher=WIDERESNET50)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ManagerSpec(fleet=fleet, n_shards=2).build()
+    with pytest.raises(RuntimeError, match="cuda"):
+        FleetManager(fleet, n_shards=2)
+    cpu = FleetSpec(student=RESNET18, teacher=WIDERESNET50, device="cpu")
+    mgr = ManagerSpec(fleet=cpu, n_shards=2).build()
+    assert [s.session.device for s in mgr.shards] == [torch.device("cpu")] * 2
+    assert FleetManager(cpu, n_shards=1).shards[0].session.device == \
+        torch.device("cpu")
 
 
 def test_chip_smoke_refuses_without_a_card():

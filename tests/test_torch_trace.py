@@ -249,7 +249,7 @@ def test_untraced_plan_reads_no_clock(golden, monkeypatch):
     session = port_session(golden, HP, apply_mx=True)
     monkeypatch.setattr(dispatch_mod, "time", NoClock)
     monkeypatch.setattr(session_mod, "time", NoClock)
-    monkeypatch.setattr(trace_mod, "_path_totals", no_snapshot)
+    monkeypatch.setattr(trace_mod, "thread_path_totals", no_snapshot)
     res = session.run(port_stream(golden), duration=8.0)
     assert len(res.phase_log) > 0
     assert any(r.retrain_time > 0 for r in res.records)
