@@ -71,9 +71,17 @@ exits non-zero without printing a result:
    output's (and against the plain version of the kv split where the plan
    splits): the main path's ViT-B/16 and ViT-B/32 attention at 224 px and
    batch 32 (fp32, non-causal, 197 and 50 tokens), GQA causal bf16,
-   gemma2-2b's local layer (8192 tokens, D 256, window 4096, softcap 50),
-   a decode-append (128 queries at offset 8064 against 8192 keys) in bf16
-   and in fp32, and rows with no key (exactly 0); prints each case's
+   gemma2-2b's local and global layers as phase 13 prefills them (8192
+   tokens, D 256, softcap 50; window 4096 on the local one; the global
+   one also at phase 13's batch of 4), its ring decodes (4 sequences, one
+   query against a full 4096-slot local ring and a full 8224-slot global
+   one, non-causal, softcap 50, K/V read through the head-major cache's
+   transposed view as decode reads them), the fp32 setups of the drivers
+   (the train driver's 1 x 1024 with window 4096 and softcap 50, the serve
+   driver's 4 x 512 prefill and its decode against a 544-slot ring), a
+   decode-append (128 queries at offset 8064 against 8192
+   keys) in bf16 and in fp32, and rows with no key (exactly 0); prints each
+   case's
    design (3xTF32 or bf16 MMAs) and kv split count; times kernel, plain
    version and ``F.scaled_dot_product_attention`` where one call computes
    the same function, beside the bound (bytes over 3.35 TB/s, 4·B·H·D
@@ -150,6 +158,20 @@ exits non-zero without printing a result:
    quantize and dequantize launch per fill (restored and migrated lanes
    included) and the two-level ledger conserved; each run's wall per 40 s,
    serial beside pooled, with the card's ``nvidia-smi`` line.
+13. lm      — the dense LM side (``models/transformer.py``, the drivers of
+   ``launch/``) at gemma2-2b's full width (2.61 B parameters; GQA 8/4, D
+   256, local window 4096 on even layers, softcaps 50 and 30): served in
+   its own bf16 from a seeded CUDA generator (element count against
+   ``param_count()``), 4 x 8192 prompt tokens of ``TokenPipeline``
+   prefilled into an 8224-slot cache (the local layers' 4096-slot rings
+   wrap) and 32 greedy decode steps, twice and bit for bit; every attention
+   call through the kernel, 26 launches a prefill and 26 a decode step;
+   the decode logits held to one ``hidden``/``logits`` pass over prompt and
+   generated tokens (RMS share within ``LM_RMS_SHARE``, greedy tokens
+   equal but for near ties, |logit| <= 30); then the serve driver as the
+   reference runs it (fp32, batch 4, prompt 512, 32 tokens: prefill ms,
+   decode tok/s, peak memory) and the train driver (fp32 AdamW, batch 1 x
+   seq 1024, 3 steps with finite loss: each step's wall, peak memory).
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -674,6 +696,20 @@ ATTENTION_CASES = (
      dict(causal=True)),
     ("gemma2-2b local layer", (1, 8192, 8192, 8, 4, 256), "bfloat16",
      dict(causal=True, window=4096, softcap=50.0)),
+    ("gemma2-2b global layer", (1, 8192, 8192, 8, 4, 256), "bfloat16",
+     dict(causal=True, softcap=50.0)),
+    ("gemma2-2b prefill batch 4", (4, 8192, 8192, 8, 4, 256), "bfloat16",
+     dict(causal=True, softcap=50.0)),
+    ("gemma2-2b ring decode", (4, 1, 4096, 8, 4, 256), "bfloat16",
+     dict(causal=False, softcap=50.0)),
+    ("gemma2-2b global ring decode", (4, 1, 8224, 8, 4, 256), "bfloat16",
+     dict(causal=False, softcap=50.0)),
+    ("gemma2-2b train fp32", (1, 1024, 1024, 8, 4, 256), "float32",
+     dict(causal=True, window=4096, softcap=50.0)),
+    ("gemma2-2b serve driver fp32", (4, 512, 512, 8, 4, 256), "float32",
+     dict(causal=True, softcap=50.0)),
+    ("gemma2-2b serve driver decode fp32", (4, 1, 544, 8, 4, 256), "float32",
+     dict(causal=False, softcap=50.0)),
     ("decode-append", (1, 128, 8192, 8, 4, 256), "bfloat16",
      dict(causal=True, q_offset=8064)),
     ("decode-append fp32", (1, 128, 8192, 8, 4, 256), "float32",
@@ -681,6 +717,11 @@ ATTENTION_CASES = (
     ("fully masked rows", (1, 64, 64, 2, 2, 32), "float32",
      dict(causal=True, q_offset=-4)),
 )
+# The decode cases read K/V as phase 13's decode does: a [B, Kv, L, D] ring
+# viewed as [B, L, Kv, D] (``models/attention.py::flash_decode``), so the
+# head stride exceeds the sequence stride.
+HEAD_MAJOR_KV = ("gemma2-2b ring decode", "gemma2-2b global ring decode",
+                 "gemma2-2b serve driver decode fp32")
 ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 # A second limit: the error's RMS as a share of the plain output's RMS.
 # Where rows average thousands of keys, a typical output (sqrt(e / Skv),
@@ -692,15 +733,19 @@ ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 ATTENTION_RMS_SHARE = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
 
 
-def attention_inputs(gen, shape, dtype: str, dev):
+def attention_inputs(gen, shape, dtype: str, dev, head_major: bool = False):
     """q [B, Sq, H, D], k and v [B, Skv, Kv, D]: N(0, 1) from ``gen`` in
-    ``dtype``."""
+    ``dtype``; with ``head_major`` k and v are transposed views of
+    contiguous [B, Kv, Skv, D] tensors, as the decode cache holds them."""
     import torch
 
     b, sq, skv, h, kvh, d = shape
-    return [torch.randn(size, generator=gen, device=dev).to(
-        getattr(torch, dtype)) for size in ((b, sq, h, d), (b, skv, kvh, d),
-                                            (b, skv, kvh, d))]
+    kv_size = (b, kvh, skv, d) if head_major else (b, skv, kvh, d)
+    q, k, v = [torch.randn(size, generator=gen, device=dev).to(
+        getattr(torch, dtype)) for size in ((b, sq, h, d), kv_size, kv_size)]
+    if head_major:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    return q, k, v
 
 
 def attention_pairs(sq: int, skv: int, causal: bool, window,
@@ -802,7 +847,8 @@ def attention_phase(dev="cuda"):
     rows, max_err = [], 0.0
     for label, shape, dtype, opts in ATTENTION_CASES:
         b, sq, skv, h, kvh, d = shape
-        q, k, v = attention_inputs(gen, shape, dtype, dev)
+        head_major = label in HEAD_MAJOR_KV
+        q, k, v = attention_inputs(gen, shape, dtype, dev, head_major)
         plan = fa.attention_plan(b, h, sq, skv, causal=opts["causal"],
                                  window=opts.get("window"),
                                  q_offset=opts.get("q_offset", 0))
@@ -833,7 +879,10 @@ def attention_phase(dev="cuda"):
                    float((lib().float() - plain.float()).abs().max()))
         del out, plain
         row = {"case": label, "shape_b_sq_skv_h_kv_d": list(shape),
-               "dtype": dtype, "options": opts, "max_abs_err": err,
+               "dtype": dtype, "options": opts,
+               "kv_layout": ("[B, Kv, L, D] viewed" if head_major
+                             else "[B, Skv, Kv, D]"),
+               "max_abs_err": err,
                "dead_rows": int(dead.sum()), "tol_reading": reading,
                "rms_share": share, "design": ATTENTION_DESIGN[dtype],
                "kv_splits": plan.splits,
@@ -846,7 +895,8 @@ def attention_phase(dev="cuda"):
                "library_ms": None if lib is None else time_ms(lib),
                "library_max_abs_err": lib_err}
         rows.append(row)
-        log("attention", "{case} {shape_b_sq_skv_h_kv_d} {dtype} {options}: "
+        log("attention", "{case} {shape_b_sq_skv_h_kv_d} {dtype} {options}, "
+            "k/v {kv_layout}: "
             "{design}, {kv_splits} kv piece(s); max err {max_abs_err:.3g} "
             "({tol_reading:.3g} of the limit), RMS share {rms_share:.3g}, "
             "{ms:.4f} ms (plain {plain_ms:.4f} ms, SDPA {library_ms}), bound "
@@ -2271,6 +2321,317 @@ def manager_phase(bare: dict) -> dict:
     return out
 
 
+LM_ARCH = "gemma2-2b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 8192, 32
+# Phase 13's limit on decode against one full pass over the same tokens,
+# both in the config's bf16: RMS(decode - full) <= LM_RMS_SHARE x RMS(full)
+# over all 4 x 32 x 256000 logits. Derivation: the two runs store every
+# activation in bf16 (unit roundoff u = 2^-9) after different summation
+# orders (M = 4 against M = 32896 GEMMs, ring-slot against position order
+# in attention), so a stored value differs by up to one rounding either way,
+# RMS 0.82u; ~10 stored values a sublayer give ~2.6u of its output. The
+# residual stream (RMS ~48: random embeddings times sqrt(2304)) has a bf16
+# step of 0.25, so each of the 52 residual adds flips its rounding with
+# probability ~|dy| / 0.25 ~ 2 %, ~0.035 RMS an add, ~0.25 over 52 adds:
+# 0.5 % of the residual, which the final norm carries into the head. The
+# tied head's logits (RMS ~24, softcap 30; sech^2 ~0.45 on average) then
+# move by ~0.005 of their RMS. The limit leaves 12x for compounding through
+# the layers; a decode that reads a wrong slot, position or cache is off by
+# O(1). Greedy tokens must agree wherever the full pass's top two logits
+# are further apart than twice the largest error.
+LM_RMS_SHARE = 2.0 ** -4
+
+
+def lm_decode_bound_ms(cfg) -> float:
+    """The least time of one decode step at phase 13's last position: its
+    weights read once and every sequence's K/V (the global layers' slots
+    up to the last position, the local layers' full rings) once, over
+    3.35 TB/s (the matmuls' 2 FLOPs a weight a sequence are ~1 % of the
+    bf16 peak's reach)."""
+    itemsize = 2  # bf16
+    n = LM_PROMPT + LM_GEN
+    kv = 0
+    for i in range(cfg.num_layers):
+        window = cfg.local_window if cfg.is_local_layer(i) else None
+        slots = min(n, window) if window else n
+        kv += 2 * LM_BATCH * cfg.num_kv_heads * cfg.resolved_head_dim * slots
+    params = cfg.param_count() + (2 * cfg.num_layers + 1) * cfg.d_model
+    return (params + kv) * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def device_busy_ms(fn):
+    """(host wall ms, device busy ms) of ``fn()`` between two syncs: the
+    busy time is ``fill_profile.py``'s, the union of the device events
+    ``torch.profiler`` records; None where it records none. The wall
+    includes the profiler's own host cost."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from fill_profile import busy_us, device_events
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(start, stop) for _, start, stop in device_events(prof)]
+    return wall * 1e3, (busy_us(spans) / 1e3 if spans else None)
+
+
+def lm_serve(model, prompts, gen: int, profile_step=None) -> dict:
+    """One serving run of phase 13: weights from a fresh CUDA generator
+    (seed 0), the prefill of ``prompts`` into a cache of prompt + ``gen``
+    slots, then ``gen`` greedy decode steps. Returns the params, the decode
+    logits [B, gen, V] and the tokens fed [B, gen], host walls, and the
+    attention launches of the prefill and of each decode step. Nothing
+    in the decode loop waits for the card, so ``issue_s`` (the host time
+    spent inside ``decode_step``) near ``decode_s`` means the host, not
+    the card, sets the pace. Decode step ``profile_step`` (if any) runs
+    between two syncs under the profiler: ``step_profile`` is its host
+    wall and device busy ms (``device_busy_ms``)."""
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    s = prompts.shape[1]
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, prompts, cache_capacity=s + gen)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    per_prefill = mxq.launch_counts()["flash_attention"]
+    tok = logits.argmax(-1)
+    fed, outs, per_step = [], [], []
+    issue_s, step_profile = 0.0, None
+    t0 = time.perf_counter()
+    for i in range(gen):
+        before = mxq.launch_counts()["flash_attention"]
+        fed.append(tok)
+        t1 = time.perf_counter()
+        if i == profile_step:
+            box = []
+            step_profile = device_busy_ms(lambda: box.append(
+                model.decode_step(params, tok[:, None], s + i, caches)))
+            logits, caches = box[0]
+        else:
+            logits, caches = model.decode_step(params, tok[:, None], s + i,
+                                               caches)
+        issue_s += time.perf_counter() - t1
+        per_step.append(mxq.launch_counts()["flash_attention"] - before)
+        outs.append(logits)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"params": params, "logits": torch.stack(outs, 1),
+            "fed": torch.stack(fed, 1), "prefill_s": prefill_s,
+            "decode_s": decode_s, "issue_s": issue_s,
+            "step_profile": step_profile,
+            "per_prefill": per_prefill,
+            "per_step": per_step,
+            "stats": ops.kernel_stats().get("flash_attention")}
+
+
+def lm_decode_against_full(model, params, prompts, run: dict) -> dict:
+    """Phase 13's check of decode against one ``hidden``/``logits`` pass
+    over prompt + generated tokens, at the generated positions: the RMS
+    share within ``LM_RMS_SHARE``, every logit within the final softcap,
+    greedy tokens equal except near ties. Returns the readings."""
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+
+    cap = model.cfg.final_softcap
+    s, gen = prompts.shape[1], run["fed"].shape[1]
+    tokens = torch.cat([prompts, run["fed"].to(prompts.dtype)], 1)
+    before = mxq.launch_counts()["flash_attention"]
+    with torch.no_grad():
+        x, _, _ = model.hidden(params, tokens, mode="prefill",
+                               positions=torch.arange(s + gen), remat=False)
+        full = model.logits(params, x[:, s:])
+    del x
+    launches = mxq.launch_counts()["flash_attention"] - before
+    dec = run["logits"]
+    err = (dec - full).abs()
+    max_err = float(err.max())
+    share = float((dec - full).square().mean().sqrt()
+                  / full.square().mean().sqrt())
+    top2 = full.topk(2, -1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = dec.argmax(-1) != full.argmax(-1)
+    clear = differ & (gap > 2 * max_err)
+    biggest = max(float(dec.abs().max()), float(full.abs().max()))
+    readings = {"rms_share": share, "max_abs_err": max_err,
+                "argmax_differ": int(differ.sum()),
+                "argmax_differ_clear": int(clear.sum()),
+                "max_abs_logit": biggest, "full_pass_launches": launches,
+                "positions": [s, s + gen - 1]}
+    if (not share <= LM_RMS_SHARE or int(clear.sum())
+            or not biggest <= cap or not bool(torch.isfinite(dec).all())):
+        raise AssertionError(f"lm: decode against the full pass: {readings} "
+                             f"(limits: RMS share {LM_RMS_SHARE}, no clear "
+                             f"argmax change, |logit| <= {cap})")
+    return readings
+
+
+def lm_phase() -> dict:
+    """Phase 13: gemma2-2b at full width on the card. (i) Serving in the
+    config's bf16: weights from a seeded CUDA generator (element count
+    checked against ``param_count()``), prefill of 4 x 8192 prompt tokens
+    of ``TokenPipeline`` into a cache of 8224 slots (the local layers'
+    4096-slot rings wrap), 32 greedy decode steps — twice, bit for bit;
+    every attention call "cuda", 26 launches a prefill and 26 a decode
+    step; decode held to one full pass (``lm_decode_against_full``). (ii)
+    The serve driver as the reference runs it (fp32, batch 4, prompt 512,
+    32 tokens): prefill ms, decode tok/s, peak memory. (iii) The train
+    driver: fp32 AdamW, batch 1 x seq 1024, 3 steps, finite loss, each
+    step's wall and the peak memory. Returns the numbers and launches."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.registry import make_lm_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(LM_ARCH)
+    layers = cfg.num_layers
+    model = make_lm_model(cfg)
+    prompts = torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, LM_PROMPT, LM_BATCH, seed=0).batch(0)["inputs"]).to(
+            model.device)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    first = lm_serve(model, prompts, LM_GEN)
+    out["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in tree_leaves(first["params"]))
+    # param_count() leaves out the post-block norms and the final norm.
+    want = cfg.param_count() + (2 * layers + 1) * cfg.d_model
+    if n != want:
+        raise AssertionError(f"lm: {n} parameters, expected {want}")
+    if (first["per_prefill"] != layers
+            or first["per_step"] != [layers] * LM_GEN
+            or first["stats"] != {"cuda": layers * (1 + LM_GEN)}):
+        raise AssertionError(
+            f"lm: attention launches {first['per_prefill']} a prefill, "
+            f"{first['per_step']} per decode step, kernel_stats "
+            f"{first['stats']}; expected {layers} each, all cuda")
+    out.update(params=n, prefill_s=first["prefill_s"],
+               decode_s=first["decode_s"], issue_s=first["issue_s"])
+    log("lm", f"{LM_ARCH} bf16 full width: {n:,} parameters "
+        f"(param_count() {cfg.param_count():,} + {(2 * layers + 1)} norms "
+        f"of {cfg.d_model}); prefill {LM_BATCH} x {LM_PROMPT} tokens "
+        f"{first['prefill_s'] * 1e3:.1f} ms, {LM_GEN} decode steps "
+        f"{first['decode_s'] * 1e3:.1f} ms "
+        f"({LM_GEN * LM_BATCH / first['decode_s']:.1f} tok/s; "
+        f"{first['issue_s'] * 1e3:.1f} ms of it issuing on the host), peak "
+        f"{out['serve_peak_bytes'] / 2**30:.2f} GiB; "
+        f"{first['per_prefill']} attention launches a prefill, "
+        f"{layers} a decode step, all cuda")
+    second = lm_serve(model, prompts, LM_GEN, profile_step=LM_GEN - 1)
+    differ = [key for key in ("logits", "fed")
+              if not same_bits(first[key], second[key])]
+    differ += [f"param {i}" for i, (a, b) in enumerate(zip(
+        tree_leaves(first["params"]), tree_leaves(second["params"])))
+        if not same_bits(a, b)]
+    if differ:
+        raise AssertionError(f"lm: two serving runs differ in {differ}")
+    wall_ms, busy_ms = second["step_profile"]
+    out["decode_step_profile"] = {"wall_ms": wall_ms, "device_busy_ms":
+                                  busy_ms}
+    out["second_run"] = {key: second[key] for key in (
+        "prefill_s", "decode_s", "issue_s")}
+    log("lm", f"a second run from the same seed: bit for bit (weights, "
+        f"{LM_GEN} decode logits, tokens); prefill "
+        f"{second['prefill_s'] * 1e3:.1f} ms, {LM_GEN} decode steps "
+        f"{second['decode_s'] * 1e3:.1f} ms with one under the profiler: "
+        f"its decode step at t = "
+        f"{LM_PROMPT + LM_GEN - 1} between two syncs under the profiler: "
+        f"{wall_ms:.2f} ms of host wall, device busy "
+        f"{'not measured' if busy_ms is None else f'{busy_ms:.3f} ms'} "
+        f"(bound {lm_decode_bound_ms(cfg):.3f} ms)")
+    del second
+    torch.cuda.empty_cache()
+    readings = lm_decode_against_full(model, first["params"], prompts, first)
+    out["decode_vs_full"] = readings
+    log("lm", "decode against one full pass over {p} tokens at positions "
+        "{positions}: RMS share {rms_share:.4g} (limit {lim:.4g}), max abs "
+        "err {max_abs_err:.4g}, |logit| <= {max_abs_logit:.4g}, argmax "
+        "differs at {argmax_differ} of {n} (near ties; {argmax_differ_clear} "
+        "clear)".format(p=LM_PROMPT + LM_GEN, lim=LM_RMS_SHARE,
+                        n=LM_BATCH * LM_GEN, **readings))
+    del first
+    torch.cuda.empty_cache()
+
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    res = serve_lib.serve(["--arch", LM_ARCH, "--batch", "4",
+                           "--prompt-len", "512", "--gen", "32"])
+    launches = mxq.launch_counts()["flash_attention"]
+    if (launches != layers * 32
+            or ops.kernel_stats().get("flash_attention") != {"cuda":
+                                                              launches}):
+        raise AssertionError(f"lm serve driver: {launches} attention "
+                             f"launches, {ops.kernel_stats()}; expected "
+                             f"{layers * 32}, all cuda")
+    out["serve_driver"] = {k: res[k] for k in (
+        "prefill_s", "decode_s", "decode_tok_per_s", "peak_bytes")}
+    out["serve_driver"]["launches"] = launches
+    log("lm", f"serve driver (fp32, batch 4, prompt 512, 32 tokens): prefill "
+        f"{res['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{res['decode_tok_per_s']:.1f} tok/s, peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB, {launches} attention "
+        "launches, all cuda")
+    del res
+    torch.cuda.empty_cache()
+
+    ckpt = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        mxq.reset_launch_counts()
+        ops.reset_kernel_stats()
+        res = train_lib.train(["--arch", LM_ARCH, "--steps", "3", "--batch",
+                               "1", "--seq", "1024", "--log-every", "1",
+                               "--checkpoint-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = mxq.launch_counts()["flash_attention"]
+    if (not all(math.isfinite(x) for x in res["loss"])
+            or len(res["loss"]) != 3
+            or ops.kernel_stats().get("flash_attention") != {"cuda":
+                                                              launches}
+            or launches != 3 * 2 * layers):
+        raise AssertionError(f"lm train driver: losses {res['loss']}, "
+                             f"{launches} attention launches, "
+                             f"{ops.kernel_stats()}; expected finite, "
+                             f"{3 * 2 * layers} all cuda")
+    out["train_driver"] = {k: res[k] for k in ("loss", "step_s",
+                                               "tok_per_s", "peak_bytes")}
+    out["train_driver"]["launches"] = launches
+    log("lm", f"train driver (fp32 AdamW, batch 1 x seq 1024): losses "
+        f"{[round(x, 4) for x in res['loss']]}, step walls "
+        f"{[round(x, 3) for x in res['step_s']]} s, peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB, {launches} attention "
+        f"launches (forward and recompute, {layers} each a step), all cuda")
+    out["launches_lm"] = {"prefill": layers, "decode_step": layers,
+                          "serve_run": layers * (1 + LM_GEN),
+                          "full_pass": readings["full_pass_launches"],
+                          "serve_driver": out["serve_driver"]["launches"],
+                          "train_driver": launches}
+    return out
+
+
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
 GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
     "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
@@ -2864,6 +3225,12 @@ def main() -> None:
     del fleet_firsts
     log("manager", f"phase done in {time.perf_counter() - t0:.2f} s")
 
+    # --------------------------------------------------------------- 13 lm
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm = lm_phase()
+    log("lm", f"phase done in {time.perf_counter() - t0:.2f} s")
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -2911,6 +3278,7 @@ def main() -> None:
                 "flash_attention"],
             "vit_vmapped": fleet["vit_vmapped"]["cuda"],
             "full_width": fleet_launches["full_width"]["flash_attention"]},
+        "launches_lm": lm["launches_lm"],
         "cases": attention_rows})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

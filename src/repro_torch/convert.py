@@ -5,7 +5,16 @@ JAX side: ``jax.tree_util.tree_map(np.asarray, tree)``), becomes the port's
 tree on a given device, bit for bit: same nesting (a ViT's ``blocks`` list
 of dicts too), same key names, same shapes and layouts (conv weights stay
 HWIO, dense weights [in, out], the ViT's ``cls`` and ``pos`` stay 3-D). JAX's random streams cannot be reproduced in
-torch, so this is how both packages compute on the same weights.
+torch, so this is how both packages compute on the same weights. An LM
+tree (a ``blocks`` tuple of stacked dicts) crosses the same way.
+
+bf16 crosses bit for bit both ways. JAX hands a bf16 array over as a numpy
+array of the ``bfloat16`` dtype that ``ml_dtypes`` registers with numpy,
+which ``torch.from_numpy`` refuses: it is carried as its uint16 bit
+patterns and reinterpreted as ``torch.bfloat16``. Back, a bf16 tensor's
+bits come out under numpy's ``bfloat16`` dtype, which exists in a process
+that has imported ``ml_dtypes`` (every process holding JAX arrays has);
+the port itself imports numpy only, so elsewhere that direction raises.
 
 An MX representation crosses the same way (``mx_from_numpy`` /
 ``mx_to_numpy``): a JAX ``MXTensor`` or ``MXLeaf`` with numpy fields
@@ -24,16 +33,43 @@ from repro_torch.kernels.ref import MXTensor
 from repro_torch.tree import tree_map
 
 
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16"
+
+
+def _to_tensor(a) -> torch.Tensor:
+    """One numpy leaf -> a CPU tensor of its own (a copy); a ``bfloat16``
+    array becomes a ``torch.bfloat16`` tensor of the same bits."""
+    a = np.array(a, copy=True)
+    if _is_bf16(a):
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_array(t: torch.Tensor) -> np.ndarray:
+    """One tensor leaf -> a host numpy copy; a ``torch.bfloat16`` tensor
+    becomes a numpy ``bfloat16`` array of the same bits."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        raise TypeError("numpy has no bfloat16 dtype in this process: it "
+                        "is registered by ml_dtypes, which JAX imports")
+    return t.view(torch.int16).numpy().view(bf16)
+
+
 def params_from_numpy(tree, device: DeviceLike = None):
     """numpy-leaf tree -> tensor-leaf tree on ``device`` (default cuda)."""
     dev = resolve_device(device)
-    return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+    return tree_map(lambda a: _to_tensor(a).to(dev), tree)
 
 
 def params_to_numpy(tree):
     """tensor-leaf tree -> numpy-leaf tree (host copies)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    return tree_map(_to_array, tree)
 
 
 _MX_FIELDS = (("mantissa", np.int8), ("exponent", np.int8),

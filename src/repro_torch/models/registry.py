@@ -1,5 +1,5 @@
-"""Handles for the vision models of the CL pairs (the vision half of the
-JAX package's ``models/registry.py``)."""
+"""Unified handles for the vision models of the CL pairs and the LMs of
+the assigned archs (the JAX package's ``models/registry.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,10 +7,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.dacapo_pairs import VisionConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import resnet as resnet_lib
 from repro_torch.models import vit as vit_lib
+from repro_torch.models.transformer import LMModel, make_model
 from repro_torch.tree import tree_leaves
 
 
@@ -51,3 +53,8 @@ def make_vision_model(cfg: VisionConfig,
     card)."""
     return VisionModel(cfg, resolve_device(device))
 
+
+def make_lm_model(cfg: ArchConfig, device: DeviceLike = None) -> LMModel:
+    """An LM handle on ``device`` (default ``cuda``; raises without a
+    card)."""
+    return make_model(cfg, device)

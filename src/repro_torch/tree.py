@@ -11,46 +11,52 @@ from typing import Any, Callable, List, Optional
 
 def tree_map(fn: Callable, tree: Any, *rest: Any,
              is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
-    """Apply ``fn`` to every leaf (with the matching leaves of ``rest``)."""
+    """Apply ``fn`` to every leaf (with the matching leaves of ``rest``).
+
+    The walkers are module-level functions: a recursive closure would be a
+    reference cycle (function -> cell -> function) holding ``fn`` and all
+    it captures until the garbage collector runs — on the card, device
+    memory the caller has already let go."""
     if rest:
-        def walk_rest(t, *rs):
-            if is_leaf is not None and is_leaf(t):
-                return fn(t, *rs)
-            if isinstance(t, dict):
-                return {k: walk_rest(v, *[r[k] for r in rs])
-                        for k, v in t.items()}
-            if isinstance(t, (list, tuple)):
-                return type(t)([walk_rest(v, *[r[i] for r in rs])
-                                for i, v in enumerate(t)])
-            return fn(t, *rs)
+        return _walk_rest(tree, rest, fn, is_leaf)
+    return _walk(tree, fn, is_leaf)
 
-        return walk_rest(tree, *rest)
 
-    def walk(t):  # the one-tree case, kept lean: serving fills run it
-        if is_leaf is not None and is_leaf(t):
-            return fn(t)
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)([walk(v) for v in t])
+def _walk(t, fn, is_leaf):  # the one-tree case, kept lean: fills run it
+    if is_leaf is not None and is_leaf(t):
         return fn(t)
+    if isinstance(t, dict):
+        return {k: _walk(v, fn, is_leaf) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)([_walk(v, fn, is_leaf) for v in t])
+    return fn(t)
 
-    return walk(tree)
+
+def _walk_rest(t, rs, fn, is_leaf):
+    if is_leaf is not None and is_leaf(t):
+        return fn(t, *rs)
+    if isinstance(t, dict):
+        return {k: _walk_rest(v, [r[k] for r in rs], fn, is_leaf)
+                for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)([_walk_rest(v, [r[i] for r in rs], fn, is_leaf)
+                        for i, v in enumerate(t)])
+    return fn(t, *rs)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
     """Leaves in the same order ``tree_map`` visits them."""
     leaves: List[Any] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                walk(v)
-        elif isinstance(t, (list, tuple)):
-            for v in t:
-                walk(v)
-        else:
-            leaves.append(t)
-
-    walk(tree)
+    _collect(tree, leaves)
     return leaves
+
+
+def _collect(t, leaves: List[Any]) -> None:
+    if isinstance(t, dict):
+        for v in t.values():
+            _collect(v, leaves)
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            _collect(v, leaves)
+    else:
+        leaves.append(t)

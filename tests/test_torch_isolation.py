@@ -140,6 +140,45 @@ def test_manager_default_device_raises_without_a_card():
         torch.device("cpu")
 
 
+def test_lm_side_pulls_in_no_jax():
+    """The LM side (configs, models, training, the token pipeline and both
+    drivers) loads nothing of JAX."""
+    code = ("import sys; import repro_torch.configs, "
+            "repro_torch.models.registry, repro_torch.models.transformer, "
+            "repro_torch.training.grad, repro_torch.training.train_state, "
+            "repro_torch.data.tokens, repro_torch.launch.serve, "
+            "repro_torch.launch.train; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env={"PYTHONPATH": f"{ROOT / 'src'}",
+                       "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_lm_default_device_raises_without_a_card():
+    """``LMModel``, ``make_lm_model`` and both LM drivers run on the card
+    unless the caller asks for the CPU."""
+    _require_no_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve, train
+    from repro_torch.models.registry import make_lm_model
+    from repro_torch.models.transformer import LMModel
+
+    cfg = get_arch("gemma2-2b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        LMModel(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_lm_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.serve(["--arch", "gemma2-2b", "--reduced"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train(["--arch", "gemma2-2b", "--reduced", "--steps", "1"])
+    assert make_lm_model(cfg, "cpu").device == torch.device("cpu")
+    assert LMModel(cfg, "cpu").device == torch.device("cpu")
+
+
 def test_chip_smoke_refuses_without_a_card():
     _require_no_card()
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],

@@ -193,14 +193,22 @@ def test_split_gemm_ref_sums_in_fixed_order():
                        tref._matmul_nt(aq, bq))
 
 
-# Phase 7's cases and the kv split count the plan gives each: only the
+# Phase 7's cases and the kv split count the plan gives each: the
 # decode-append (16 CTAs of 64 rows against 8192 keys), in bf16 and fp32,
-# splits.
+# gemma2-2b's ring decodes (32 CTAs of one query row against 4096, 8224 or
+# 544 keys) and the train driver's 1 x 1024 (128 CTAs) split.
 EXPECTED_SPLITS = {
     "vit-b16 224px batch 32": 1,
     "vit-b32 224px batch 32": 1,
     "gqa causal": 1,
     "gemma2-2b local layer": 1,
+    "gemma2-2b global layer": 1,
+    "gemma2-2b prefill batch 4": 1,
+    "gemma2-2b ring decode": 8,
+    "gemma2-2b global ring decode": 9,
+    "gemma2-2b train fp32": 3,
+    "gemma2-2b serve driver fp32": 1,
+    "gemma2-2b serve driver decode fp32": 2,
     "decode-append": 16,
     "decode-append fp32": 16,
     "fully masked rows": 1,
@@ -287,7 +295,8 @@ def test_split_attention_ref_matches_pallas_kernel(case, dtype):
         assert dead.sum() == 32
 
 
-# Phase 7's cases that the plan splits: where each row averages 8192 keys.
+# Phase 7's cases that the plan splits: where rows average 544 to 8224
+# keys.
 PHASE7_SPLIT_CASES = [c for c in chip_smoke.ATTENTION_CASES
                       if EXPECTED_SPLITS[c[0]] > 1]
 
@@ -309,7 +318,7 @@ def test_phase7_check_fails_a_faulty_combine(case):
     q, k, v = (torch.randn(s, generator=gen).to(getattr(torch, dtype))
                for s in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
     plan = tfa.attention_plan(b, h, sq, skv, causal=opts["causal"],
-                              q_offset=opts["q_offset"])
+                              q_offset=opts.get("q_offset", 0))
     parts = tref.flash_attention_partials(
         q, k, v, tfa.split_ranges(plan, skv), **opts)
     plain = tref.flash_attention_ref(q, k, v, **opts)
