@@ -78,8 +78,13 @@ exits non-zero without printing a result:
    one, non-causal, softcap 50, K/V read through the head-major cache's
    transposed view as decode reads them), the fp32 setups of the drivers
    (the train driver's 1 x 1024 with window 4096 and softcap 50, the serve
-   driver's 4 x 512 prefill and its decode against a 544-slot ring), a
-   decode-append (128 queries at offset 8064 against 8192
+   driver's 4 x 512 prefill and its decode against a 544-slot ring),
+   phase 14's attention setups (mixtral-8x7b's prefill of 4 x 4096 with
+   GQA 32/8 at D 128 and window 4096, its ring decode against 4096 slots
+   through the head-major view, jamba-v0.1-52b's unwindowed 2 x 4096 and
+   its first and last decodes against 4097 and 4128 of a 4128-slot ring,
+   the serve example's fp32 decodes at D 16 against 33 and 48 of 48
+   slots), a decode-append (128 queries at offset 8064 against 8192
    keys) in bf16 and in fp32, and rows with no key (exactly 0); prints each
    case's
    design (3xTF32 or bf16 MMAs) and kv split count; times kernel, plain
@@ -172,6 +177,25 @@ exits non-zero without printing a result:
    reference runs it (fp32, batch 4, prompt 512, 32 tokens: prefill ms,
    decode tok/s, peak memory) and the train driver (fp32 AdamW, batch 1 x
    seq 1024, 3 steps with finite loss: each step's wall, peak memory).
+14. mixers  — the MoE, Mamba and xLSTM layers (``models/moe.py``,
+   ``ssm.py``, ``xlstm.py``) at full width in bf16 from a seeded CUDA
+   generator, the depth cut to fit one card (``MIXER_MODELS``):
+   mixtral-8x7b at 4 of 32 layers, 4 x 4096 prompt tokens (routing groups
+   of 512; the 4096-slot ring wraps while decoding), jamba-v0.1-52b at one
+   pattern period (8 of 32 layers), 2 x 4096, xlstm-125m whole, 4 x 1024
+   (4 mLSTM chunks, 1024 sLSTM steps); each prefilled and decoded 32 steps
+   twice, bit for bit, every attention call "cuda" (one launch a layer a
+   prefill and a decode step), the element count against
+   ``param_defs()``, the eager recurrences' share of the prefill and the
+   MoE drops at the config's capacity factor logged, decode held to one
+   full pass (``MIXER_RMS_SHARE``; at a capacity factor of e / k for the
+   MoE models), for xlstm-125m also in fp32 (``XLSTM_FP32_SHARE``) and
+   with three decode faults planted, each of which both limits must fail
+   (``xlstm_decode_bracket``); the reduced three trained once on the card
+   and once on the CPU port, loss and gradients within
+   ``tests/_torch_lm.py``'s tolerances; ``examples/train_lm_torch.py`` at
+   full xlstm-125m for 3 steps and ``examples/serve_lm_torch.py`` at its
+   defaults.
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -183,7 +207,9 @@ object describing each kernel; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -710,6 +736,20 @@ ATTENTION_CASES = (
      dict(causal=True, softcap=50.0)),
     ("gemma2-2b serve driver decode fp32", (4, 1, 544, 8, 4, 256), "float32",
      dict(causal=False, softcap=50.0)),
+    ("mixtral-8x7b prefill", (4, 4096, 4096, 32, 8, 128), "bfloat16",
+     dict(causal=True, window=4096)),
+    ("mixtral-8x7b ring decode", (4, 1, 4096, 32, 8, 128), "bfloat16",
+     dict(causal=False)),
+    ("jamba-v0.1-52b attention layer", (2, 4096, 4096, 32, 8, 128),
+     "bfloat16", dict(causal=True)),
+    ("jamba-v0.1-52b first decode", (2, 1, 4097, 32, 8, 128), "bfloat16",
+     dict(causal=False)),
+    ("jamba-v0.1-52b last decode", (2, 1, 4128, 32, 8, 128), "bfloat16",
+     dict(causal=False)),
+    ("serve example first decode fp32", (4, 1, 33, 4, 2, 16), "float32",
+     dict(causal=False)),
+    ("serve example last decode fp32", (4, 1, 48, 4, 2, 16), "float32",
+     dict(causal=False)),
     ("decode-append", (1, 128, 8192, 8, 4, 256), "bfloat16",
      dict(causal=True, q_offset=8064)),
     ("decode-append fp32", (1, 128, 8192, 8, 4, 256), "float32",
@@ -717,11 +757,20 @@ ATTENTION_CASES = (
     ("fully masked rows", (1, 64, 64, 2, 2, 32), "float32",
      dict(causal=True, q_offset=-4)),
 )
-# The decode cases read K/V as phase 13's decode does: a [B, Kv, L, D] ring
-# viewed as [B, L, Kv, D] (``models/attention.py::flash_decode``), so the
-# head stride exceeds the sequence stride.
+# The decode cases read K/V as phases 13 and 14 decode: a [B, Kv, L, D]
+# ring viewed as [B, L, Kv, D] (``models/attention.py::flash_decode``), so
+# the head stride exceeds the sequence stride.
 HEAD_MAJOR_KV = ("gemma2-2b ring decode", "gemma2-2b global ring decode",
-                 "gemma2-2b serve driver decode fp32")
+                 "gemma2-2b serve driver decode fp32",
+                 "mixtral-8x7b ring decode", "jamba-v0.1-52b first decode",
+                 "jamba-v0.1-52b last decode",
+                 "serve example first decode fp32",
+                 "serve example last decode fp32")
+# Where a decode reads the filled prefix of a longer ring: the ring's L
+# (phase 14's jamba decodes against 4097 to 4128 of 4128 slots, the serve
+# example's reduced mixtral-8x7b against 33 to 48 of 48).
+RING_SLOTS = {"jamba-v0.1-52b first decode": 4128,
+              "serve example first decode fp32": 48}
 ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 # A second limit: the error's RMS as a share of the plain output's RMS.
 # Where rows average thousands of keys, a typical output (sqrt(e / Skv),
@@ -733,18 +782,21 @@ ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 ATTENTION_RMS_SHARE = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
 
 
-def attention_inputs(gen, shape, dtype: str, dev, head_major: bool = False):
+def attention_inputs(gen, shape, dtype: str, dev, head_major: bool = False,
+                     slots=None):
     """q [B, Sq, H, D], k and v [B, Skv, Kv, D]: N(0, 1) from ``gen`` in
-    ``dtype``; with ``head_major`` k and v are transposed views of
-    contiguous [B, Kv, Skv, D] tensors, as the decode cache holds them."""
+    ``dtype``; with ``head_major`` k and v are transposed views of the
+    first Skv rows of contiguous [B, Kv, L, D] rings (L = ``slots``,
+    default Skv), as the decode cache holds them."""
     import torch
 
     b, sq, skv, h, kvh, d = shape
-    kv_size = (b, kvh, skv, d) if head_major else (b, skv, kvh, d)
+    kv_size = ((b, kvh, slots or skv, d) if head_major
+               else (b, skv, kvh, d))
     q, k, v = [torch.randn(size, generator=gen, device=dev).to(
         getattr(torch, dtype)) for size in ((b, sq, h, d), kv_size, kv_size)]
     if head_major:
-        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        k, v = (t[:, :, :skv].transpose(1, 2) for t in (k, v))
     return q, k, v
 
 
@@ -848,7 +900,8 @@ def attention_phase(dev="cuda"):
     for label, shape, dtype, opts in ATTENTION_CASES:
         b, sq, skv, h, kvh, d = shape
         head_major = label in HEAD_MAJOR_KV
-        q, k, v = attention_inputs(gen, shape, dtype, dev, head_major)
+        q, k, v = attention_inputs(gen, shape, dtype, dev, head_major,
+                                   RING_SLOTS.get(label))
         plan = fa.attention_plan(b, h, sq, skv, causal=opts["causal"],
                                  window=opts.get("window"),
                                  q_offset=opts.get("q_offset", 0))
@@ -880,7 +933,8 @@ def attention_phase(dev="cuda"):
         del out, plain
         row = {"case": label, "shape_b_sq_skv_h_kv_d": list(shape),
                "dtype": dtype, "options": opts,
-               "kv_layout": ("[B, Kv, L, D] viewed" if head_major
+               "kv_layout": ("[B, Kv, {}, D] viewed".format(
+                   RING_SLOTS.get(label, "L")) if head_major
                              else "[B, Skv, Kv, D]"),
                "max_abs_err": err,
                "dead_rows": int(dead.sum()), "tol_reading": reading,
@@ -2380,11 +2434,13 @@ def device_busy_ms(fn):
     return wall * 1e3, (busy_us(spans) / 1e3 if spans else None)
 
 
-def lm_serve(model, prompts, gen: int, profile_step=None) -> dict:
-    """One serving run of phase 13: weights from a fresh CUDA generator
-    (seed 0), the prefill of ``prompts`` into a cache of prompt + ``gen``
-    slots, then ``gen`` greedy decode steps. Returns the params, the decode
-    logits [B, gen, V] and the tokens fed [B, gen], host walls, and the
+def lm_serve(model, prompts, gen: int, profile_step=None,
+             params=None) -> dict:
+    """One serving run of phases 13 and 14: ``params`` (default: weights
+    from a fresh CUDA generator, seed 0), the prefill of ``prompts`` into a
+    cache of prompt + ``gen`` slots, then ``gen`` greedy decode steps.
+    Returns the params, the decode logits [B, gen, V] and the tokens fed
+    [B, gen], host walls, and the
     attention launches of the prefill and of each decode step. Nothing
     in the decode loop waits for the card, so ``issue_s`` (the host time
     spent inside ``decode_step``) near ``decode_s`` means the host, not
@@ -2396,7 +2452,8 @@ def lm_serve(model, prompts, gen: int, profile_step=None) -> dict:
     from repro_torch.kernels import mx_quantize as mxq
     from repro_torch.kernels import ops
 
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    if params is None:
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
     s = prompts.shape[1]
     mxq.reset_launch_counts()
     ops.reset_kernel_stats()
@@ -2437,45 +2494,65 @@ def lm_serve(model, prompts, gen: int, profile_step=None) -> dict:
             "stats": ops.kernel_stats().get("flash_attention")}
 
 
-def lm_decode_against_full(model, params, prompts, run: dict) -> dict:
-    """Phase 13's check of decode against one ``hidden``/``logits`` pass
-    over prompt + generated tokens, at the generated positions: the RMS
-    share within ``LM_RMS_SHARE``, every logit within the final softcap,
-    greedy tokens equal except near ties. Returns the readings."""
+def full_pass_logits(model, params, prompts, fed):
+    """One ``hidden``/``logits`` pass over prompt + ``fed`` tokens: (the
+    logits at the fed tokens' positions [B, gen, V], attention launches)."""
     import torch
 
     from repro_torch.kernels import mx_quantize as mxq
 
-    cap = model.cfg.final_softcap
-    s, gen = prompts.shape[1], run["fed"].shape[1]
-    tokens = torch.cat([prompts, run["fed"].to(prompts.dtype)], 1)
+    s, gen = prompts.shape[1], fed.shape[1]
+    tokens = torch.cat([prompts, fed.to(prompts.dtype)], 1)
     before = mxq.launch_counts()["flash_attention"]
     with torch.no_grad():
         x, _, _ = model.hidden(params, tokens, mode="prefill",
                                positions=torch.arange(s + gen), remat=False)
         full = model.logits(params, x[:, s:])
-    del x
-    launches = mxq.launch_counts()["flash_attention"] - before
-    dec = run["logits"]
-    err = (dec - full).abs()
-    max_err = float(err.max())
-    share = float((dec - full).square().mean().sqrt()
-                  / full.square().mean().sqrt())
-    top2 = full.topk(2, -1).values
-    gap = top2[..., 0] - top2[..., 1]
-    differ = dec.argmax(-1) != full.argmax(-1)
-    clear = differ & (gap > 2 * max_err)
-    biggest = max(float(dec.abs().max()), float(full.abs().max()))
-    readings = {"rms_share": share, "max_abs_err": max_err,
-                "argmax_differ": int(differ.sum()),
-                "argmax_differ_clear": int(clear.sum()),
-                "max_abs_logit": biggest, "full_pass_launches": launches,
-                "positions": [s, s + gen - 1]}
-    if (not share <= LM_RMS_SHARE or int(clear.sum())
-            or not biggest <= cap or not bool(torch.isfinite(dec).all())):
-        raise AssertionError(f"lm: decode against the full pass: {readings} "
-                             f"(limits: RMS share {LM_RMS_SHARE}, no clear "
-                             f"argmax change, |logit| <= {cap})")
+    return full, mxq.launch_counts()["flash_attention"] - before
+
+
+def decode_readings(dec, full, held=None) -> dict:
+    """Decode logits ``dec`` against the full pass's ``full`` [B, gen, V]
+    over the (b, step) tokens ``held`` (default all): RMS share, max
+    error, argmax changes and those not near a tie (the full pass's top two
+    further apart than twice the max error), the largest |logit|."""
+    import torch
+
+    if held is None:
+        held = torch.ones(dec.shape[:2], dtype=torch.bool, device=dec.device)
+    d, f = dec[held], full[held]
+    max_err = float((d - f).abs().max()) if d.numel() else 0.0
+    top2 = f.topk(2, -1).values
+    differ = d.argmax(-1) != f.argmax(-1)
+    clear = differ & (top2[..., 0] - top2[..., 1] > 2 * max_err)
+    return {"rms_share": float((d - f).square().mean().sqrt()
+                               / f.square().mean().sqrt()),
+            "max_abs_err": max_err, "argmax_differ": int(differ.sum()),
+            "argmax_differ_clear": int(clear.sum()),
+            "max_abs_logit": max(float(dec.abs().max()),
+                                 float(full.abs().max())),
+            "finite": bool(torch.isfinite(dec).all()),
+            "tokens": int(held.sum())}
+
+
+def lm_decode_against_full(model, params, prompts, run: dict,
+                           limit: float = LM_RMS_SHARE) -> dict:
+    """Phase 13's (and 14's) check of decode against one
+    ``hidden``/``logits`` pass over prompt + generated tokens, at the
+    generated positions: the RMS share within ``limit``, every logit
+    within the final softcap (if the config has one), greedy tokens equal
+    except near ties. Returns the readings."""
+    cap = model.cfg.final_softcap
+    s, gen = prompts.shape[1], run["fed"].shape[1]
+    full, launches = full_pass_logits(model, params, prompts, run["fed"])
+    readings = decode_readings(run["logits"], full)
+    readings.update(full_pass_launches=launches, positions=[s, s + gen - 1])
+    if (not readings["rms_share"] <= limit or readings["argmax_differ_clear"]
+            or (cap is not None and not readings["max_abs_logit"] <= cap)
+            or not readings["finite"]):
+        raise AssertionError(f"{model.cfg.name}: decode against the full "
+                             f"pass: {readings} (limits: RMS share {limit}, "
+                             f"no clear argmax change, |logit| <= {cap})")
     return readings
 
 
@@ -2629,6 +2706,628 @@ def lm_phase() -> dict:
                           "full_pass": readings["full_pass_launches"],
                           "serve_driver": out["serve_driver"]["launches"],
                           "train_driver": launches}
+    return out
+
+
+# Phase 14's models: (arch, layers kept, batch, prompt tokens), each served
+# at its published widths in its own bf16 from a seeded CUDA generator,
+# the depth cut to fit one card: mixtral-8x7b 4 of 32 layers (6.1 B
+# parameters), jamba-v0.1-52b one pattern period, 8 of 32 layers (7 Mamba,
+# 1 attention; 4 MoE layers of 16 experts; 13.3 B), xlstm-125m whole.
+MIXER_MODELS = (("mixtral-8x7b", 4, 4, 4096), ("jamba-v0.1-52b", 8, 2, 4096),
+                ("xlstm-125m", 12, 4, 1024))
+MIXER_GEN = 32
+# Phase 14's limit on decode against one full pass over the same tokens,
+# both in the config's bf16: RMS(decode - full) <= MIXER_RMS_SHARE x
+# RMS(full) over all generated positions' logits. Set from readings on an
+# H100, since LM_RMS_SHARE's rounding estimate (each sublayer moved by
+# ~2.6u, u = 2^-9, compounding as sqrt(L)) does not hold for every model
+# here: it gives 0.015, 0.021 and 0.017 for mixtral's 8, jamba's 16 and
+# xlstm's 12 sublayers, and sound runs read 0.012, 0.018 and 0.040.
+# xlstm's excess is rounding, not a fault: in fp32 the same model reads
+# 2.5e-5, and each decode fault planted by ``xlstm_decode_bracket`` (a
+# stale sLSTM or mLSTM state, a conv row read late) reads 0.64-1.05 in
+# bf16 and fp32 alike. The limit sits 1.6x above the largest sound reading
+# and 10x below the least fault; the bracket holds both ends every run.
+# The MoE models are held at a capacity factor of e / k, where no token
+# can drop, and over the tokens that decode and the full pass route to the
+# same experts (``mixer_moe_decode_check``).
+MIXER_RMS_SHARE = 2.0 ** -4
+# Routing is discrete: where a token's k-th and (k+1)-th router
+# probabilities nearly tie, the two runs' rounding may send it to other
+# experts, and its logits then move by a gate times an expert's output.
+# The router reads the normed residual, which the runs carry apart by the
+# share above (~2 %), so its fp32 logits (~N(0, 1)) move by ~0.02 and a
+# gap between two probabilities (each <= 1/2) by up to ~0.02. A reroute
+# is allowed only where the full pass's gap is within ROUTE_TIE, 1.5x
+# that; a routing fault reroutes tokens far from any tie.
+ROUTE_TIE = 2.0 ** -5
+# tests/_torch_lm.py's tolerances, for the reduced models' card run held
+# to the CPU port: fp32 summation order (RTOL of each tensor's scale) and
+# gradients (GRAD_RTOL of each leaf's scale).
+LM_RTOL, LM_GRAD_RTOL = 2e-5, 1e-3
+RECURRENCES = (("ssm", "_chunk", "mamba chunks"),
+               ("xlstm", "_mlstm_chunk", "mlstm chunks"),
+               ("xlstm", "_slstm_step", "slstm steps"))
+
+
+def layer_scale_(model, params):
+    """Rescale ``params`` in place so that each stacked block leaf has its
+    own layer's init scale, and return them. ``ParamDef`` (the
+    reference's init, which the port keeps) takes the leading dim as the
+    fan-in, and for a stacked [n_groups, ...] leaf that is the group count:
+    1 in the reduced jamba and xLSTM and in jamba-v0.1-52b cut to one
+    period, so their block weights are N(0, 1) and the models chaotic (one
+    fp32 rounding of the reduced models' weights moves their gradients by
+    up to 4 % of a leaf's scale; full-width jamba's decode and full pass
+    part by an RMS share of 0.45). A default-scaled block leaf is
+    multiplied by sqrt(n_groups / its layer's own fan-in), the scale its
+    layer's def draws alone; leaves with a scale of their own stay. Used
+    by phase 14 and by the CPU parity tests."""
+    from repro_torch.tree import tree_leaves
+
+    defs = tree_leaves(model.param_defs()["blocks"])
+    for d, leaf in zip(defs, tree_leaves(params["blocks"])):
+        if d.init == "normal" and d.scale is None:
+            leaf.mul_(math.sqrt(d.shape[0] / d.shape[1]))
+    return params
+
+
+@contextlib.contextmanager
+def recurrence_spans(spans: dict):
+    """Time each call of the eager recurrences (the Mamba scan chunk, the
+    mLSTM chunk, the sLSTM step) between two CUDA events, without a sync:
+    ``spans[label]`` collects the (start, end) pairs."""
+    import importlib
+
+    import torch
+
+    saved = []
+    for module, name, label in RECURRENCES:
+        mod = importlib.import_module(f"repro_torch.models.{module}")
+        orig = getattr(mod, name)
+
+        def timed(*args, _orig=orig, _label=label):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _orig(*args)
+            end.record()
+            spans.setdefault(_label, []).append((start, end))
+            return out
+        saved.append((mod, name, orig))
+        setattr(mod, name, timed)
+    try:
+        yield
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def route_record(records: list):
+    """Record each MoE routing call: (expert indices [b, s, k], the top
+    k + 1 router probabilities [b, s, k + 1], the keep mask [b, s, k])."""
+    import torch
+
+    from repro_torch.models import moe
+
+    orig = moe.route
+
+    def recording(logits, cfg, *, no_drop):
+        out = orig(logits, cfg, no_drop=no_drop)
+        records.append((out[1], torch.softmax(logits, -1).topk(
+            cfg.top_k + 1, -1).values, out[3]))
+        return out
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+# Decode faults planted in xlstm-125m, each of which phase 14's decode check
+# must fail (``xlstm_decode_bracket``): an sLSTM or mLSTM layer whose decode
+# never advances its recurrent state past the prefill's, and an mLSTM conv
+# that reads its window one row late (rows t-3, t-3, t-2 and t in place of
+# t-3, t-2, t-1 and t).
+XLSTM_FAULTS = ("sLSTM state stale", "mLSTM state stale",
+                "mLSTM conv one row late")
+# The limit on the same check in fp32: xlstm-125m's sound fp32 decode
+# reads 2.5e-5 on an H100 (far above u = 2^-24: the gated recurrences
+# amplify rounding), the planted faults 0.64-1.05; the limit leaves 10x
+# above the one and 2600x below the other.
+XLSTM_FP32_SHARE = 2.0 ** -12
+
+
+@contextlib.contextmanager
+def planted_fault(fault: str):
+    """Plant one of ``XLSTM_FAULTS`` in the xLSTM layers' decode, through
+    the model's mixer table (``models/transformer.py::_MIXERS``); prefill
+    and the full pass run as they are."""
+    import torch
+
+    from repro_torch.configs.base import MIXER_MLSTM, MIXER_SLSTM
+    from repro_torch.models import transformer, xlstm
+
+    mixer = MIXER_SLSTM if fault.startswith("sLSTM") else MIXER_MLSTM
+    defs, forward, cache_defs = transformer._MIXERS[mixer]
+    conv = xlstm.causal_conv
+
+    def stale(params, x, cfg, *, mode, cache=None):
+        if mode != "decode":
+            return forward(params, x, cfg, mode=mode, cache=cache)
+        keep = {key: val.clone() for key, val in cache.items()
+                if key != "conv"}
+        out = forward(params, x, cfg, mode=mode, cache=cache)
+        for key, val in keep.items():
+            cache[key].copy_(val)
+        return out
+
+    def late(x, w, b, conv_state=None):
+        if conv_state is None:
+            return conv(x, w, b)
+        y, _ = conv(x, w, b, torch.cat([conv_state[:, :1],
+                                        conv_state[:, :-1]], 1))
+        return y, conv(x, w, b, conv_state)[1]
+
+    if fault.endswith("state stale"):
+        transformer._MIXERS[mixer] = (defs, stale, cache_defs)
+    else:
+        xlstm.causal_conv = late
+    try:
+        yield
+    finally:
+        transformer._MIXERS[mixer] = (defs, forward, cache_defs)
+        xlstm.causal_conv = conv
+
+
+def xlstm_decode_bracket(model, params, prompts, fed) -> dict:
+    """Where phase 14's decode check of xlstm-125m sits between a sound
+    decode and a faulty one. The bf16 model on ``params`` and the same
+    model in fp32 (weights from the same seed, ``layer_scale_``d) each
+    prefill ``prompts`` once and decode the tokens ``fed`` [B, gen] from
+    a copy of that cache, sound and with each of ``XLSTM_FAULTS``
+    planted, held to one full pass over the same tokens: sound within the
+    limit (``XLSTM_FP32_SHARE`` in fp32, ``MIXER_RMS_SHARE`` in bf16),
+    every fault above it. Returns the readings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.registry import make_lm_model
+    from repro_torch.tree import tree_map
+
+    model32 = make_lm_model(dataclasses.replace(model.cfg, dtype="float32"),
+                            model.device)
+    p32 = layer_scale_(model32, model32.init(
+        torch.Generator(device=model.device).manual_seed(0)))
+    s, gen = prompts.shape[1], fed.shape[1]
+    out, shares = {}, {}
+    for dtype, m, p, limit in (("float32", model32, p32, XLSTM_FP32_SHARE),
+                               ("bfloat16", model, params, MIXER_RMS_SHARE)):
+        full, _ = full_pass_logits(m, p, prompts, fed)
+        with torch.no_grad():
+            _, prefilled = m.prefill(p, prompts, cache_capacity=s + gen)
+        out[dtype] = {}
+        for fault in (None,) + XLSTM_FAULTS:
+            caches, logits = tree_map(torch.clone, prefilled), []
+            with (planted_fault(fault) if fault
+                  else contextlib.nullcontext()), torch.no_grad():
+                for i in range(gen):
+                    step, caches = m.decode_step(p, fed[:, i:i + 1], s + i,
+                                                 caches)
+                    logits.append(step)
+            out[dtype][fault or "sound"] = decode_readings(
+                torch.stack(logits, 1), full)
+        shares[dtype] = {key: r["rms_share"] for key, r in out[dtype].items()}
+        shares[dtype]["limit"] = limit
+        del full, prefilled, caches
+    log("mixers", f"{model.cfg.name}: decode of the same {gen} tokens "
+        "against the full pass, sound and with a fault planted (RMS "
+        "shares): " + "; ".join(
+            f"{dtype} sound {sh['sound']:.4g} (limit {sh['limit']:.4g}), "
+            + ", ".join(f"{fault} {sh[fault]:.4g}" for fault in XLSTM_FAULTS)
+            for dtype, sh in shares.items()))
+    for dtype, sh in shares.items():
+        missed = [fault for fault in XLSTM_FAULTS
+                  if not sh[fault] > sh["limit"]]
+        if not sh["sound"] <= sh["limit"] or missed:
+            raise AssertionError(
+                f"{model.cfg.name}: {dtype} decode against the full pass: "
+                f"{sh} (sound within the limit, every fault above; missed "
+                f"{missed})")
+    return out
+
+
+def route_flips(decoded: list, full: list, s: int, gen: int, k: int):
+    """Where decode routed a generated token to other experts than the
+    full pass did, in any MoE layer: (mask [B, gen], the number of (token,
+    layer) flips, the largest of the full pass's gaps p_k - p_(k+1) between
+    its k-th and (k+1)-th router probabilities at a flip). ``decoded``
+    holds ``route_record``'s calls of a serving run (its one-token decode
+    calls, layer after layer, step after step), ``full`` those of one pass
+    over all s + gen tokens (one group a row)."""
+    import torch
+
+    steps = [r for r in decoded if r[0].shape[1] == 1]
+    layers = len(full)
+    if len(steps) != gen * layers:
+        raise AssertionError(f"{len(steps)} decode routing calls, expected "
+                             f"{gen} x {layers}")
+    flips, count, gap = None, 0, 0.0
+    for layer, (idx, top, _) in enumerate(full):
+        want = idx[:, s:s + gen].sort(-1).values
+        got = torch.cat([steps[i * layers + layer][0]
+                         for i in range(gen)], 1).sort(-1).values
+        flip = (want != got).any(-1)
+        flips = flip if flips is None else flips | flip
+        count += int(flip.sum())
+        if bool(flip.any()):
+            gaps = top[:, s:s + gen, k - 1] - top[:, s:s + gen, k]
+            gap = max(gap, float(gaps[flip].max()))
+    return flips, count, gap
+
+
+def drop_shares(records: list):
+    """(share of (token, expert) picks dropped, share of tokens that lost
+    a pick) over ``route_record``'s calls."""
+    keeps = [keep for *_, keep in records]
+    return (float(sum((~k).sum() for k in keeps))
+            / sum(k.numel() for k in keeps),
+            float(sum((~k).any(-1).sum() for k in keeps))
+            / sum(k[..., 0].numel() for k in keeps))
+
+
+def mixer_serving(cfg, full_layers: int, batch: int, prompt: int) -> dict:
+    """Phase 14, one model at full width in its bf16 (depth cut to
+    ``cfg.num_layers`` of ``full_layers``), its weights from a seeded CUDA
+    generator rescaled to each layer's own init scale (``layer_scale_``):
+    two serving runs from the same seed, bit for bit (weights, decode
+    logits, tokens), every attention call "cuda" at one launch a layer for
+    the prefill and for each decode step; the element count against
+    ``param_defs()``; between them a prefill with the eager recurrences
+    timed (``recurrence_spans``) and the MoE drops counted
+    (``route_record``); one decode step of the second run profiled; decode
+    against one full pass (``lm_decode_against_full`` within
+    ``MIXER_RMS_SHARE``; ``mixer_moe_decode_check`` for the MoE models;
+    ``xlstm_decode_bracket`` for xlstm-125m). Returns the readings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import MIXER_ATTENTION
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed import param_shapes
+    from repro_torch.models.registry import make_lm_model
+    from repro_torch.tree import tree_leaves
+
+    name, gen = cfg.name, MIXER_GEN
+    model = make_lm_model(cfg)
+    attn = sum(cfg.mixer_for_layer(i) == MIXER_ATTENTION
+               for i in range(cfg.num_layers))
+    prompts = torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, prompt, batch, seed=0).batch(0)["inputs"]).to(
+            model.device)
+
+    def fresh():
+        return model.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def timed_prefill(params, spans, routes):
+        """Prefill ms with the recurrences timed and the routing recorded."""
+        with recurrence_spans(spans), route_record(routes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, prompts, cache_capacity=prompt + gen)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    first = lm_serve(model, prompts, gen,
+                     params=layer_scale_(model, fresh()))
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in tree_leaves(first["params"]))
+    want = sum(m.numel() for m in tree_leaves(param_shapes(
+        model.param_defs())))
+    if n != want:
+        raise AssertionError(f"{name}: {n} parameters, param_defs() {want}")
+    stats = {"cuda": attn * (1 + gen)} if attn else None
+    if (first["per_prefill"] != attn or first["per_step"] != [attn] * gen
+            or first["stats"] != stats):
+        raise AssertionError(
+            f"{name}: attention launches {first['per_prefill']} a prefill, "
+            f"{first['per_step']} per decode step, kernel_stats "
+            f"{first['stats']}; expected {attn} each, all cuda")
+    spans, routes = {}, []
+    instrumented_ms = timed_prefill(first["params"], spans, routes)
+    second = lm_serve(model, prompts, gen, profile_step=gen - 1,
+                      params=layer_scale_(model, fresh()))
+    differ = [key for key in ("logits", "fed")
+              if not same_bits(first[key], second[key])]
+    differ += [f"param {i}" for i, (a, b) in enumerate(zip(
+        tree_leaves(first["params"]), tree_leaves(second["params"])))
+        if not same_bits(a, b)]
+    if differ:
+        raise AssertionError(f"{name}: two serving runs differ in {differ}")
+    recur = {label: sum(a.elapsed_time(b) for a, b in pairs)
+             for label, pairs in spans.items()}
+    calls = {label: len(pairs) for label, pairs in spans.items()}
+    wall_ms, busy_ms = second["step_profile"]
+    out = {"layers": cfg.num_layers, "of_layers": full_layers,
+           "batch": batch, "prompt": prompt, "params": n,
+           "param_count": cfg.param_count(), "peak_bytes": peak,
+           "prefill_ms": [first["prefill_s"] * 1e3,
+                          second["prefill_s"] * 1e3],
+           "instrumented_prefill_ms": instrumented_ms,
+           "decode_tok_per_s": [gen * batch / r["decode_s"]
+                                for r in (first, second)],
+           "issue_share": [r["issue_s"] / r["decode_s"]
+                           for r in (first, second)],
+           "decode_step_profile": {"wall_ms": wall_ms,
+                                   "device_busy_ms": busy_ms},
+           "recurrences_ms": recur, "recurrence_calls": calls,
+           "recurrence_share": sum(recur.values()) / instrumented_ms,
+           "launches": {"prefill": first["per_prefill"],
+                        "decode_steps": first["per_step"]}}
+    if cfg.num_experts:
+        out["dropped_shares"] = drop_shares(routes)
+    log("mixers", f"{name} bf16, {cfg.num_layers} of {full_layers} layers: "
+        f"{n:,} parameters (= param_defs(); param_count() "
+        f"{cfg.param_count():,}); prefill {batch} x {prompt} tokens "
+        f"{first['prefill_s'] * 1e3:.1f} ms, {gen} decode steps "
+        f"{first['decode_s'] * 1e3:.1f} ms ({out['decode_tok_per_s'][0]:.1f}"
+        f" tok/s; {out['issue_share'][0]:.1%} issuing on the host), peak "
+        f"{peak / 2**30:.2f} GiB; {attn} attention launches a prefill and a "
+        f"decode step, all cuda")
+    log("mixers", f"{name}: a second run from the same seed bit for bit "
+        f"(weights, {gen} decode logits, tokens); a prefill with the "
+        f"recurrences timed between CUDA events {instrumented_ms:.1f} ms: "
+        + (", ".join(f"{label} {ms:.1f} ms ({calls[label]} calls)"
+                     for label, ms in recur.items()) or "none")
+        + f" = {out['recurrence_share']:.1%} of it; decode step at t = "
+        f"{prompt + gen - 1} under the profiler {wall_ms:.2f} ms host wall, "
+        f"device busy "
+        f"{'not measured' if busy_ms is None else f'{busy_ms:.3f} ms'}"
+        + (f"; at capacity factor {cfg.capacity_factor} the prefill dropped "
+           "{:.2%} of the (token, expert) picks, {:.2%} of the tokens lost a "
+           "pick".format(*out["dropped_shares"])
+           if cfg.num_experts else ""))
+    del second
+    torch.cuda.empty_cache()
+    if not cfg.num_experts:
+        out["decode_vs_full"] = lm_decode_against_full(
+            model, first["params"], prompts, first, MIXER_RMS_SHARE)
+        log("mixers", "{name}: decode against one full pass over {p} "
+            "tokens at positions {positions}: RMS share {rms_share:.4g} "
+            "(limit {lim:.4g}), max abs err {max_abs_err:.4g}, argmax "
+            "differs at {argmax_differ} of {tokens} (near ties; "
+            "{argmax_differ_clear} clear)".format(
+                name=name, p=prompt + gen, lim=MIXER_RMS_SHARE,
+                **out["decode_vs_full"]))
+        if cfg.slstm_at:
+            out["decode_bracket"] = xlstm_decode_bracket(
+                model, first["params"], prompts, first["fed"])
+        return out
+    out["decode_vs_full"] = mixer_moe_decode_check(
+        cfg, first["params"], prompts, gen)
+    return out
+
+
+def mixer_moe_decode_check(cfg, params, prompts, gen: int) -> dict:
+    """Phase 14's decode check of an MoE model: at a capacity factor of
+    e / k (no token can drop) a serving run on ``params`` and one full
+    pass over its tokens, both with their routing recorded. Where decode
+    and the full pass route a token to the same experts in every layer,
+    its logits are held within ``MIXER_RMS_SHARE`` (greedy tokens equal but
+    near ties); a token that either routed elsewhere must sit where the
+    full pass's k-th and (k+1)-th router probabilities are within
+    ``ROUTE_TIE`` of each other. Returns the readings."""
+    import dataclasses
+
+    from repro_torch.models.registry import make_lm_model
+
+    model = make_lm_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k))
+    s = prompts.shape[1]
+    decoded, full_routes = [], []
+    with route_record(decoded):
+        run = lm_serve(model, prompts, gen, params=params)
+    with route_record(full_routes):
+        full, launches = full_pass_logits(model, params, prompts, run["fed"])
+    flips, count, gap = route_flips(decoded, full_routes, s, gen, cfg.top_k)
+    held = decode_readings(run["logits"], full, ~flips)
+    whole = decode_readings(run["logits"], full)
+    out = {**held, "all_tokens": whole, "rerouted_tokens": int(flips.sum()),
+           "rerouted_token_layers": count, "largest_gap_at_reroute": gap,
+           "full_pass_launches": launches, "positions": [s, s + gen - 1]}
+    log("mixers", "{name}: decode against one full pass over {p} tokens at "
+        "positions {positions}, capacity factor {cf:g}: {rerouted_tokens} of "
+        "{n} tokens routed to other experts ({rerouted_token_layers} (token, "
+        "layer) pairs; the full pass's largest gap p_k - p_(k+1) there "
+        "{largest_gap_at_reroute:.3g}, limit {tie:.3g}); over the other "
+        "{tokens}: RMS share {rms_share:.4g} (limit {lim:.4g}), max abs err "
+        "{max_abs_err:.4g}, argmax differs at {argmax_differ} (near ties; "
+        "{argmax_differ_clear} clear); over all: RMS share {all_share:.4g}, "
+        "argmax differs at {all_differ}".format(
+            name=cfg.name, p=s + gen, cf=model.cfg.capacity_factor,
+            n=flips.numel(), tie=ROUTE_TIE, lim=MIXER_RMS_SHARE,
+            all_share=whole["rms_share"], all_differ=whole["argmax_differ"],
+            **out))
+    if (not held["rms_share"] <= MIXER_RMS_SHARE
+            or held["argmax_differ_clear"] or not whole["finite"]
+            or not gap <= ROUTE_TIE):
+        raise AssertionError(f"{cfg.name}: decode against the full pass: "
+                             f"{out} (limits: RMS share {MIXER_RMS_SHARE} "
+                             f"where routed alike, no clear argmax change, "
+                             f"reroutes only within {ROUTE_TIE} of a tie)")
+    return out
+
+
+def mixer_gradients() -> dict:
+    """Phase 14: the reduced mixtral-8x7b, jamba-v0.1-52b and xlstm-125m
+    (fp32, ``layer_scale_``d weights from a CPU generator, one
+    ``TokenPipeline`` batch of 2 x 32) once on the card and once on the
+    CPU port: the card's loss and metrics within ``LM_RTOL`` and every
+    gradient within ``LM_GRAD_RTOL`` of the CPU's (an sLSTM's input-gate
+    bias, on which the loss does not depend, against its gate's weight
+    gradient, as ``tests/_torch_lm.py::grads_close``). Returns the largest
+    shares of the limits."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MIXER_ATTENTION
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import make_lm_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def value_and_grad(model, params, data):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, metrics = model.loss(live, data)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return ({k: v.detach() for k, v in metrics.items()},
+                [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)])
+
+    def paths(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from paths(v, prefix + (k,))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from paths(v, prefix + (i,))
+        else:
+            yield prefix
+
+    def reading(got, want, rtol, scale=None):
+        """The largest share of the limit rtol·(scale + |want|), scale
+        max|want| by default; 0 where both are exactly 0."""
+        want = want.double()
+        scale = float(want.abs().max()) if scale is None else scale
+        err = (got.double().cpu() - want).abs()
+        limit = rtol * (scale + want.abs())
+        return float(torch.where(err == 0, torch.zeros_like(err),
+                                 err / limit).max())
+
+    out = {}
+    for arch in ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m"):
+        cfg = get_arch(arch).reduced()
+        cpu, card = make_lm_model(cfg, "cpu"), make_lm_model(cfg)
+        params = layer_scale_(cpu, cpu.init(
+            torch.Generator().manual_seed(0)))
+        data = {k: torch.from_numpy(v) for k, v in TokenPipeline(
+            cfg.vocab_size, 32, 2, seed=0).batch(0).items()}
+        want_m, want_g = value_and_grad(cpu, params, data)
+        ops.reset_kernel_stats()
+        got_m, got_g = value_and_grad(
+            card, tree_map(lambda p: p.cuda(), params),
+            {k: v.cuda() for k, v in data.items()})
+        stats = ops.kernel_stats().get("flash_attention")
+        attn = any(cfg.mixer_for_layer(i) == MIXER_ATTENTION
+                   for i in range(cfg.num_layers))
+        if (set(stats or ()) != {"cuda"}) if attn else stats is not None:
+            raise AssertionError(f"{arch} reduced: attention {stats}, "
+                                 "expected the kernel only")
+        worst = {key: reading(got_m[key], want_m[key], LM_RTOL)
+                 for key in ("loss", "nll", "aux", "accuracy")}
+        grads = {p: (g, w) for p, g, w in zip(paths(params), got_g, want_g)}
+        shares = []
+        for path, (g, w) in grads.items():
+            scale = None
+            if path[-1] == "b_i" and path[:-1] + ("r_i",) in grads:
+                scale = float(grads[path[:-1] + ("w_i",)][1].abs().max())
+            shares.append(reading(g, w, LM_GRAD_RTOL, scale))
+        worst["grads"] = max(shares)
+        out[arch] = worst
+        if not all(v <= 1.0 for v in worst.values()):
+            raise AssertionError(f"{arch} reduced: the card's loss and "
+                                 f"gradients against the CPU port's, shares "
+                                 f"of the limits: {worst}")
+        log("mixers", f"{arch} reduced, fp32 on the card against the CPU "
+            f"port: loss {float(got_m['loss']):.6f} / "
+            f"{float(want_m['loss']):.6f}, aux {float(got_m['aux']):.6g}; "
+            f"largest shares of the limits (RTOL {LM_RTOL}, gradients "
+            f"{LM_GRAD_RTOL} over {len(shares)} leaves): {worst}; attention "
+            f"{stats}")
+    return out
+
+
+def mixer_examples() -> dict:
+    """Phase 14: ``examples/train_lm_torch.py`` at xlstm-125m's full width
+    for 3 steps (fp32 AdamW, the train driver's batch 16 x 256: finite
+    losses, each step's wall, peak memory) and
+    ``examples/serve_lm_torch.py`` at its defaults (reduced mixtral-8x7b:
+    prefill ms, decode tok/s, peak memory, attention launches)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import serve_lm_torch
+    import train_lm_torch
+
+    out = {}
+    ckpt = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        res = train_lm_torch.run(["--steps", "3", "--log-every", "1",
+                                  "--checkpoint-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if len(res["loss"]) != 3 or not all(math.isfinite(x)
+                                        for x in res["loss"]):
+        raise AssertionError(f"train_lm_torch.py: losses {res['loss']}")
+    out["train_example"] = {k: res[k] for k in ("loss", "step_s",
+                                                 "tok_per_s", "peak_bytes")}
+    log("mixers", f"examples/train_lm_torch.py (xlstm-125m, fp32 AdamW, "
+        f"batch 16 x seq 256, 3 steps): losses "
+        f"{[round(x, 4) for x in res['loss']]}, step walls "
+        f"{[round(x, 3) for x in res['step_s']]} s, "
+        f"{res['tok_per_s']:,.0f} tok/s, peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    res = serve_lm_torch.run([])
+    launches = mxq.launch_counts()["flash_attention"]
+    if (ops.kernel_stats().get("flash_attention") != {"cuda": launches}
+            or launches != 2 * 16 or res["tokens"].shape != (4, 16)):
+        raise AssertionError(f"serve_lm_torch.py: {launches} attention "
+                             f"launches, {ops.kernel_stats()}, tokens "
+                             f"{res['tokens'].shape}; expected 32 cuda")
+    out["serve_example"] = {k: res[k] for k in (
+        "prefill_s", "decode_s", "decode_tok_per_s", "peak_bytes")}
+    out["serve_example"]["launches"] = launches
+    log("mixers", f"examples/serve_lm_torch.py (reduced mixtral-8x7b, fp32, "
+        f"4 x 32 prompt, 16 tokens): prefill {res['prefill_s'] * 1e3:.1f} "
+        f"ms, decode {res['decode_tok_per_s']:.1f} tok/s, peak "
+        f"{res['peak_bytes'] / 2**30:.3f} GiB, {launches} attention launches"
+        ", all cuda")
+    return out
+
+
+def mixer_phase() -> dict:
+    """Phase 14: the MoE, Mamba and xLSTM layers on the card
+    (``mixer_serving`` for each of ``MIXER_MODELS``, ``mixer_gradients``,
+    ``mixer_examples``). Returns the readings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for arch, layers, batch, prompt in MIXER_MODELS:
+        full = get_arch(arch)
+        out[arch] = mixer_serving(dataclasses.replace(full, num_layers=layers),
+                                  full.num_layers, batch, prompt)
+        torch.cuda.empty_cache()
+    out["gradients"] = mixer_gradients()
+    out.update(mixer_examples())
     return out
 
 
@@ -3231,6 +3930,14 @@ def main() -> None:
     lm = lm_phase()
     log("lm", f"phase done in {time.perf_counter() - t0:.2f} s")
 
+    # ----------------------------------------------------------- 14 mixers
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mixers = mixer_phase()
+    log("mixers", f"phase done in {time.perf_counter() - t0:.2f} s")
+    print("[mixers] summary " + json.dumps(mixers, default=float),
+          flush=True)
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -3279,6 +3986,10 @@ def main() -> None:
             "vit_vmapped": fleet["vit_vmapped"]["cuda"],
             "full_width": fleet_launches["full_width"]["flash_attention"]},
         "launches_lm": lm["launches_lm"],
+        "launches_mixers": {
+            **{arch: mixers[arch]["launches"]
+               for arch, *_ in MIXER_MODELS},
+            "serve_example": mixers["serve_example"]["launches"]},
         "cases": attention_rows})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,12 @@
 """Composable decoder LM (the JAX package's ``models/transformer.py``):
-Block(mixer, mlp) stacks grouped by the config's repeating pattern period.
+Block(mixer, mlp) stacks grouped by the config's repeating pattern period
+(dense 1, gemma2 2, xlstm 6, jamba 8).
+
+Each block's mixer is attention, Mamba (``models/ssm.py``), mLSTM or sLSTM
+(``models/xlstm.py``) as ``cfg.mixer_for_layer`` says, and its FFN an MLP
+or, where ``cfg.is_moe_layer``, a Mixture-of-Experts (``models/moe.py``)
+whose load-balancing ``aux`` the model sums over the layers and the loss
+adds, as the reference does.
 
 Parameters for each period position are stacked [n_groups, ...], as in the
 reference, so trees cross between the packages leaf for leaf. The
@@ -10,10 +17,11 @@ each group in ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
 with nothing saveable), and the loss's chunked cross-entropy checkpoints
 each chunk, so neither the forward nor the backward holds [B, S, V] logits.
 
-Dense attention blocks only: a Mamba, mLSTM or sLSTM mixer or an MoE FFN
-(``models/ssm.py``, ``xlstm.py``, ``moe.py``) is ROADMAP item 10b, and
-``param_defs`` raises ``NotImplementedError`` for such a config before
-anything runs.
+Caches are written in place, unlike the reference, which returns new ones:
+``hidden`` hands each block views of its group's slice of the stacked cache
+leaves (``leaf[g]``), and every mixer writes its new state into those views
+(``copy_``, or indexed assignment for the attention ring). A mixer that
+rebound a cache entry instead would lose the state silently.
 """
 from __future__ import annotations
 
@@ -24,10 +32,19 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig, MIXER_ATTENTION
+from repro_torch.configs.base import (
+    ArchConfig,
+    MIXER_ATTENTION,
+    MIXER_MAMBA,
+    MIXER_MLSTM,
+    MIXER_SLSTM,
+)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import ParamDef, init_params, stack_defs
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     apply_norm,
     mlp_defs,
@@ -43,28 +60,29 @@ from repro_torch.tree import tree_map
 CE_CHUNK = 1024
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a layer the port does not have
-    yet (ROADMAP item 10b)."""
-    for i in range(cfg.num_layers):
-        mixer = cfg.mixer_for_layer(i)
-        if mixer != MIXER_ATTENTION or cfg.is_moe_layer(i):
-            what = "an MoE FFN" if mixer == MIXER_ATTENTION else \
-                f"the mixer {mixer!r}"
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} has {what}; the port's MoE, Mamba "
-                "and xLSTM layers are ROADMAP item 10b")
-
-
 # ----------------------------------------------------------------- param defs
+_MIXERS = {  # mixer -> (param defs, forward, cache defs); attention apart
+    MIXER_MAMBA: (ssm_lib.mamba_defs, ssm_lib.mamba_forward,
+                  ssm_lib.mamba_cache_defs),
+    MIXER_MLSTM: (xlstm_lib.mlstm_defs, xlstm_lib.mlstm_forward,
+                  xlstm_lib.mlstm_cache_defs),
+    MIXER_SLSTM: (xlstm_lib.slstm_defs, xlstm_lib.slstm_forward,
+                  xlstm_lib.slstm_cache_defs),
+}
+
+
 def _block_defs(cfg: ArchConfig, pos: int) -> Dict[str, Any]:
-    defs: Dict[str, Any] = {"norm1": norm_defs(cfg, cfg.d_model),
-                            "mixer": attn.attn_defs(cfg)}
+    mixer = cfg.mixer_for_layer(pos)
+    defs: Dict[str, Any] = {
+        "norm1": norm_defs(cfg, cfg.d_model),
+        "mixer": (attn.attn_defs(cfg) if mixer == MIXER_ATTENTION
+                  else _MIXERS[mixer][0](cfg))}
     if cfg.post_block_norm:
         defs["post_norm1"] = norm_defs(cfg, cfg.d_model)
     if cfg.mlp != "none" and cfg.d_ff > 0:
         defs["norm2"] = norm_defs(cfg, cfg.d_model)
-        defs["ffn"] = mlp_defs(cfg)
+        defs["ffn"] = (moe_lib.moe_defs(cfg) if cfg.is_moe_layer(pos)
+                       else mlp_defs(cfg))
         if cfg.post_block_norm:
             defs["post_norm2"] = norm_defs(cfg, cfg.d_model)
     return defs
@@ -72,20 +90,31 @@ def _block_defs(cfg: ArchConfig, pos: int) -> Dict[str, Any]:
 
 def _block_forward(bp, x, cfg: ArchConfig, pos: int, *, mode: str,
                    positions, cache, t, rope):
+    """-> (x, aux): the block's output and its MoE FFN's ``aux`` (None
+    without one)."""
+    mixer = cfg.mixer_for_layer(pos)
     h = apply_norm(bp["norm1"], x, cfg)
-    y, new_cache = attn.attention_forward(
-        bp["mixer"], h, cfg, pos, positions=positions, mode=mode,
-        cache=cache, t=t, rope=rope)
+    if mixer == MIXER_ATTENTION:
+        y, _ = attn.attention_forward(
+            bp["mixer"], h, cfg, pos, positions=positions, mode=mode,
+            cache=cache, t=t, rope=rope)
+    else:
+        y, _ = _MIXERS[mixer][1](bp["mixer"], h, cfg, mode=mode, cache=cache)
     if cfg.post_block_norm:
         y = apply_norm(bp["post_norm1"], y, cfg)
     x = x + y
+    aux = None
     if "ffn" in bp:
         h = apply_norm(bp["norm2"], x, cfg)
-        y = mlp_forward(bp["ffn"], h, cfg)
+        if cfg.is_moe_layer(pos):
+            y, aux = moe_lib.moe_forward(bp["ffn"], h, cfg,
+                                         no_drop=(mode == "decode"))
+        else:
+            y = mlp_forward(bp["ffn"], h, cfg)
         if cfg.post_block_norm:
             y = apply_norm(bp["post_norm2"], y, cfg)
         x = x + y
-    return x, new_cache
+    return x, aux
 
 
 def _unbind(tree, n: int):
@@ -121,7 +150,6 @@ class LMModel:
     # ----------------------------------------------------------------- params
     def param_defs(self):
         cfg = self.cfg
-        check_supported(cfg)
         dt = param_dtype(cfg)
         defs: Dict[str, Any] = {
             "embed": ParamDef((cfg.vocab_size, cfg.d_model),
@@ -198,20 +226,24 @@ class LMModel:
                              for g in range(n)] for p in range(period)]
 
         def group_body(x, g):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for p in range(period):
                 cache = None if group_caches is None else group_caches[p][g]
-                x, _ = _block_forward(blocks[p][g], x, cfg, p, mode=mode,
+                x, a = _block_forward(blocks[p][g], x, cfg, p, mode=mode,
                                       positions=positions, cache=cache, t=t,
                                       rope=rope)
-            return x
+                if a is not None:
+                    aux = aux + a
+            return x, aux
 
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(n):
             if remat and mode == "train" and torch.is_grad_enabled():
-                x = checkpoint(group_body, x, g, use_reentrant=False)
+                x, a = checkpoint(group_body, x, g, use_reentrant=False)
             else:
-                x = group_body(x, g)
+                x, a = group_body(x, g)
+            aux = aux + a
         x = apply_norm(params["final_norm"], x, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, (caches if mode != "train" else None), aux
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -299,11 +331,14 @@ class LMModel:
 
     # ------------------------------------------------------------------ cache
     def cache_defs(self, batch: int, capacity: int):
-        check_supported(self.cfg)
-        return tuple(
-            stack_defs([attn.attn_cache_defs(self.cfg, pos, batch, capacity)]
-                       * self.n_groups)
-            for pos in range(self.period))
+        caches = []
+        for pos in range(self.period):
+            mixer = self.cfg.mixer_for_layer(pos)
+            cd = (attn.attn_cache_defs(self.cfg, pos, batch, capacity)
+                  if mixer == MIXER_ATTENTION
+                  else _MIXERS[mixer][2](self.cfg, batch))
+            caches.append(stack_defs([cd] * self.n_groups))
+        return tuple(caches)
 
     def init_caches(self, batch: int, capacity: int):
         return tree_map(lambda d: d.initialize(None, self.device),

@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
 ``attention_mutants.py``, ``gemm_ablation.py``, ``pair_per_gemm.py``,
-``examples/continuous_learning_drive_torch.py`` and
-``examples/fleet_drive_torch.py`` import neither ``jax`` nor the JAX
+``examples/continuous_learning_drive_torch.py``,
+``examples/fleet_drive_torch.py``, ``examples/serve_lm_torch.py`` and
+``examples/train_lm_torch.py`` import neither ``jax`` nor the JAX
 package, and its entry points default to the card and refuse to run
 without one."""
 import ast
@@ -17,7 +18,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "attention_mutants.py",
     ROOT / "gemm_ablation.py", ROOT / "pair_per_gemm.py",
     ROOT / "examples" / "continuous_learning_drive_torch.py",
-    ROOT / "examples" / "fleet_drive_torch.py"]
+    ROOT / "examples" / "fleet_drive_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -141,10 +144,13 @@ def test_manager_default_device_raises_without_a_card():
 
 
 def test_lm_side_pulls_in_no_jax():
-    """The LM side (configs, models, training, the token pipeline and both
-    drivers) loads nothing of JAX."""
+    """The LM side (configs, models with the MoE, Mamba and xLSTM layers,
+    training, the token pipeline, both drivers and their example wrappers)
+    loads nothing of JAX."""
     code = ("import sys; import repro_torch.configs, "
             "repro_torch.models.registry, repro_torch.models.transformer, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.xlstm, serve_lm_torch, train_lm_torch, "
             "repro_torch.training.grad, repro_torch.training.train_state, "
             "repro_torch.data.tokens, repro_torch.launch.serve, "
             "repro_torch.launch.train; "
@@ -152,7 +158,7 @@ def test_lm_side_pulls_in_no_jax():
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
-        cwd=ROOT, env={"PYTHONPATH": f"{ROOT / 'src'}",
+        cwd=ROOT, env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT / 'examples'}",
                        "PATH": "/usr/bin:/bin"}, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -1,16 +1,21 @@
 """The port's LMs (``repro_torch.models.transformer``) against the JAX
 package's, run live on the reference's own weights carried across: for
-the six dense reduced configs the loss, its metrics and every gradient
-(against ``jax.grad``), prefill logits and caches and decode logits; the
+all ten reduced configs (dense, MoE, Mamba hybrid, xLSTM) the loss, its
+metrics (MoE's ``aux`` summed over the layers) and every gradient (against
+``jax.grad``), prefill logits and caches and decode logits; the
 reference's own prefill/decode consistency checks (``tests/test_models.py``)
-ported; a windowed ring that wraps during decode; and the four configs of
-ROADMAP item 10b (MoE, Mamba, xLSTM) raising before anything runs.
+ported; and a windowed ring that wraps during decode. The MoE, Mamba and
+xLSTM configs' decode over several tokens is in
+``tests/test_torch_lm_mixer_models.py``.
 
 Tolerances (``tests/_torch_lm.py``): fp32 summation order, RTOL = 2e-5 of
 the reference's scale; gradients GRAD_RTOL = 1e-3, 8x the reference's own
-change under a one-rounding perturbation of its weights. Where the port is
-held to itself (decode against a full pass), the reference test's own
-limits: rtol 2e-2, atol 2e-3."""
+change under a one-rounding perturbation of its weights (``grads_close``:
+an sLSTM's input-gate bias, on which the loss does not depend, against
+its gate's weight gradient). Where the port is held to itself (decode
+against a full pass), the reference test's own limits: rtol 2e-2, atol
+2e-3, at a capacity factor of 16 where a config has experts, as the
+reference test sets it, so no token drops."""
 import dataclasses
 
 import jax
@@ -22,16 +27,15 @@ import torch
 from repro_torch import configs as port_configs
 from repro_torch.convert import params_to_numpy
 from repro_torch.distributed import param_shapes
-from repro_torch.models.registry import make_lm_model
 from repro_torch.models.transformer import make_model
 from repro_torch.tree import tree_leaves
 
-from _torch_lm import (DENSE, GRAD_RTOL, NOT_PORTED, batch, close,  # noqa: F401
+from _torch_lm import (ARCH_NAMES, batch, close, grads_close,  # noqa: F401
                        one_torch_thread, pair, port_value_and_grad,
                        trees_close)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_loss_and_grads_match_reference(name):
     jm, jp, tm, tp = pair(name)
     data = batch(jm.cfg, seed=1)
@@ -41,7 +45,7 @@ def test_loss_and_grads_match_reference(name):
     close(tl, jl, what="loss")
     for key in ("nll", "accuracy", "aux"):
         close(tmet[key], jmet[key], what=key)
-    trees_close(tg, jg, GRAD_RTOL)
+    grads_close(tg, jg)
 
 
 @pytest.mark.parametrize("name", ["gemma2-2b", "musicgen-medium"])
@@ -66,10 +70,10 @@ def test_chunked_loss_matches_reference_over_chunks(name, monkeypatch):
     close(tl, jl, what="loss")
     for key in ("nll", "accuracy", "aux"):
         close(tmet[key], jmet[key], what=key)
-    trees_close(tg, jg, GRAD_RTOL)
+    grads_close(tg, jg)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_prefill_and_decode_match_reference(name):
     """Prefill 12 tokens into a capacity of 16, then 3 decode steps: the
     last-token logits, every cache leaf (slot positions exact) and each
@@ -98,17 +102,19 @@ def _port_model(name, **over):
     return cfg, model, model.init(torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_prefill_decode_consistency(name):
     """``tests/test_models.py::test_prefill_decode_consistency`` on the
     port: decode of token s after a prefill of s tokens equals the full
-    pass's last logits (windows cut to 8)."""
+    pass's last logits (windows cut to 8; no token drops)."""
     over = {}
     base = port_configs.ARCHS[name].reduced()
     if base.sliding_window:
         over["sliding_window"] = 8
     if base.local_window:
         over["local_window"] = 8
+    if base.num_experts:
+        over["capacity_factor"] = 16.0  # no token drops -> exact equality
     cfg, model, params = _port_model(name, **over)
     b, s = 2, 16
     full = batch(cfg, seed=3, b=b, s=s + 1)["inputs"]
@@ -171,7 +177,7 @@ def test_windowed_ring_wrap_matches_reference():
         close(outs[i], jlog, what=f"decode logits t={s + i}")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_shapes_and_param_counts(name):
     """The reference's smoke checks: logits [B,S,(nH,)V], and the port's
     element count equal to the reference tree's and within 6 % of the
@@ -204,17 +210,6 @@ def test_init_repeats_from_the_generator():
     b = model.init(torch.Generator().manual_seed(0))
     assert all(torch.equal(x, y)
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
-
-
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_not_ported_configs_raise(name):
-    """MoE, Mamba and xLSTM layers are ROADMAP item 10b: the model raises
-    at ``param_defs`` (so at ``init`` and ``init_caches``), naming it."""
-    model = make_lm_model(port_configs.ARCHS[name].reduced(), "cpu")
-    for call in (model.param_defs, lambda: model.init(torch.Generator()),
-                 lambda: model.init_caches(2, 8)):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            call()
 
 
 def test_bf16_tree_crosses_bit_for_bit():

@@ -196,7 +196,9 @@ def test_split_gemm_ref_sums_in_fixed_order():
 # Phase 7's cases and the kv split count the plan gives each: the
 # decode-append (16 CTAs of 64 rows against 8192 keys), in bf16 and fp32,
 # gemma2-2b's ring decodes (32 CTAs of one query row against 4096, 8224 or
-# 544 keys) and the train driver's 1 x 1024 (128 CTAs) split.
+# 544 keys), mixtral-8x7b's (128 CTAs against 4096 keys), jamba-v0.1-52b's
+# (64 CTAs against 4097 or 4128 keys, the last piece ending mid-block) and
+# the train driver's 1 x 1024 (128 CTAs) split.
 EXPECTED_SPLITS = {
     "vit-b16 224px batch 32": 1,
     "vit-b32 224px batch 32": 1,
@@ -209,6 +211,13 @@ EXPECTED_SPLITS = {
     "gemma2-2b train fp32": 3,
     "gemma2-2b serve driver fp32": 1,
     "gemma2-2b serve driver decode fp32": 2,
+    "mixtral-8x7b prefill": 1,
+    "mixtral-8x7b ring decode": 3,
+    "jamba-v0.1-52b attention layer": 1,
+    "jamba-v0.1-52b first decode": 5,
+    "jamba-v0.1-52b last decode": 5,
+    "serve example first decode fp32": 1,
+    "serve example last decode fp32": 1,
     "decode-append": 16,
     "decode-append fp32": 16,
     "fully masked rows": 1,
