@@ -85,7 +85,11 @@ exits non-zero without printing a result:
    its first and last decodes against 4097 and 4128 of a 4128-slot ring,
    the serve example's fp32 decodes at D 16 against 33 and 48 of 48
    slots), a decode-append (128 queries at offset 8064 against 8192
-   keys) in bf16 and in fp32, and rows with no key (exactly 0); prints each
+   keys) in bf16 and in fp32, and rows with no key (exactly 0); at every
+   decode, the gemma2-2b prefill and the rows with no key also the
+   kernel's row log-sum-exp (``return_lse``) against the plain version's
+   (``LSE_TOL``; -inf where a row has no key) and the output with lse
+   bitwise the output without; prints each
    case's
    design (3xTF32 or bf16 MMAs) and kv split count; times kernel, plain
    version and ``F.scaled_dot_product_attention`` where one call computes
@@ -176,7 +180,8 @@ exits non-zero without printing a result:
    equal but for near ties, |logit| <= 30); then the serve driver as the
    reference runs it (fp32, batch 4, prompt 512, 32 tokens: prefill ms,
    decode tok/s, peak memory) and the train driver (fp32 AdamW, batch 1 x
-   seq 1024, 3 steps with finite loss: each step's wall, peak memory).
+   seq 1024, 3 steps with finite loss: each step's wall, peak memory),
+   both with no mesh (``on_mesh=False``), their numbers kept for phase 15.
 14. mixers  — the MoE, Mamba and xLSTM layers (``models/moe.py``,
    ``ssm.py``, ``xlstm.py``) at full width in bf16 from a seeded CUDA
    generator, the depth cut to fit one card (``MIXER_MODELS``):
@@ -196,6 +201,23 @@ exits non-zero without printing a result:
    ``tests/_torch_lm.py``'s tolerances; ``examples/train_lm_torch.py`` at
    full xlstm-125m for 3 steps and ``examples/serve_lm_torch.py`` at its
    defaults.
+15. sharding — the mesh half (``distributed.py``, ``launch/mesh.py``,
+   ``sharding.py``, ``steps.py``) on one card, last because its drivers
+   start and end a process group: the serve and train drivers on
+   ``make_host_mesh(1)`` (a one-rank NCCL group, the rules of their
+   shapes, the bundles) at phase 13's setups, their tokens, decode logits,
+   losses and final parameters bit for bit phase 13's runs with no mesh,
+   every attention launch "cuda"; gemma2-2b's decode against its 8224-slot
+   global ring in bf16 cut into ``SHARDS`` slot ranges, each through
+   ``attention.decode_shard`` (the kernel with lse; none where a shard has
+   no valid slot), merged by ``merge_decode_shards`` over the stacked
+   results, and its global and a local layer (window 4096) at 1 x 8192
+   over ``SHARDS`` query slices through ``seq_shard`` (``q_offset``
+   against the whole K/V), each held to the unsharded kernel call within
+   phase 7's bf16 limits, with each shard's kernel ms beside the
+   unsharded call's. A multi-rank world needs several cards (NCCL refuses
+   two ranks on one; gloo has no CUDA ``all_gather``): collectives across
+   cards are not run here.
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -780,6 +802,38 @@ ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 # elementwise. Rounding P and the output to bf16 leaves the sound kernel
 # near 2^-9 (0.0021-0.0024 in this phase on an H100); fp32 below 1e-5.
 ATTENTION_RMS_SHARE = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
+# The cases where phase 7 also holds the kernel's row log-sum-exp
+# (``return_lse``) to the plain version's: every decode, the gemma2-2b
+# prefill, and rows with no key (-inf on both sides). Limit: |lse -
+# plain| <= LSE_TOL * (1 + |plain|) in both dtypes: lse is fp32 from fp32
+# logits (bf16 products are exact in fp32; 3xTF32 keeps ~22 bits), so the
+# two differ by summation order, ~1e-6 of |lse| <= ~60; a kv combine that
+# drops a piece or skips its rescale moves lse by O(0.1).
+LSE_CASES = tuple(label for label, *_ in ATTENTION_CASES
+                  if "decode" in label) + ("gemma2-2b prefill batch 4",
+                                          "fully masked rows")
+LSE_TOL = 2e-5
+
+
+def lse_within(label: str, got, want) -> float:
+    """Raise unless the kernel's lse [B, Sq, H] fp32 has -inf exactly
+    where the plain version's has it and is within LSE_TOL elsewhere.
+    Returns the max abs error over the finite rows."""
+    import torch
+
+    dead = torch.isinf(want)
+    if (got.shape != want.shape or got.dtype != torch.float32
+            or not torch.equal(torch.isinf(got), dead)
+            or not bool((got[dead] < 0).all())):
+        raise AssertionError(f"flash_attention {label}: lse shape, dtype or "
+                             "its -inf rows differ from the plain version")
+    err = (got[~dead] - want[~dead]).abs()
+    if err.numel() and not bool((err <= LSE_TOL * (1 + want[~dead].abs()))
+                                .all()):
+        raise AssertionError(f"flash_attention {label}: lse max err "
+                             f"{float(err.max())} above {LSE_TOL}·(1 + "
+                             "|plain|)")
+    return float(err.max()) if err.numel() else 0.0
 
 
 def attention_inputs(gen, shape, dtype: str, dev, head_major: bool = False,
@@ -922,6 +976,18 @@ def attention_phase(dev="cuda"):
         if bool(dead.any()) and not bool((out[:, dead] == 0).all()):
             raise AssertionError(f"flash_attention {label}: a row with no "
                                  "key is not 0")
+        lse_err = None
+        if label in LSE_CASES:
+            out_l, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                 **opts)
+            _, plain_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                   **opts)
+            torch.cuda.synchronize()
+            if not same_bits(out_l, out):
+                raise AssertionError(f"flash_attention {label}: the output "
+                                     "with return_lse differs from without")
+            lse_err = lse_within(label, lse, plain_lse)
+            del out_l, lse, plain_lse
         max_err = max(max_err, err)
         pairs = attention_pairs(sq, skv, opts["causal"], opts.get("window"),
                                 opts.get("q_offset", 0))
@@ -947,14 +1013,15 @@ def attention_phase(dev="cuda"):
                    q, k, v, **opts)),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None if lib is None else time_ms(lib),
-               "library_max_abs_err": lib_err}
+               "library_max_abs_err": lib_err, "lse_max_abs_err": lse_err}
         rows.append(row)
         log("attention", "{case} {shape_b_sq_skv_h_kv_d} {dtype} {options}, "
             "k/v {kv_layout}: "
             "{design}, {kv_splits} kv piece(s); max err {max_abs_err:.3g} "
             "({tol_reading:.3g} of the limit), RMS share {rms_share:.3g}, "
             "{ms:.4f} ms (plain {plain_ms:.4f} ms, SDPA {library_ms}), bound "
-            "{bound_ms:.4f} ms ({bound_by})".format(**row))
+            "{bound_ms:.4f} ms ({bound_by}); lse max err "
+            "{lse_max_abs_err}".format(**row))
         del q, k, v
         torch.cuda.empty_cache()
     log("attention", f"kernel within tolerance of its plain version in all "
@@ -2377,6 +2444,11 @@ def manager_phase(bare: dict) -> dict:
 
 LM_ARCH = "gemma2-2b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 8192, 32
+# Phase 13's driver runs, which phase 15 repeats on the host mesh.
+SERVE_DRIVER = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "512",
+                "--gen", "32"]
+TRAIN_DRIVER = ["--arch", LM_ARCH, "--steps", "3", "--batch", "1", "--seq",
+                "1024", "--log-every", "1"]
 # Phase 13's limit on decode against one full pass over the same tokens,
 # both in the config's bf16: RMS(decode - full) <= LM_RMS_SHARE x RMS(full)
 # over all 4 x 32 x 256000 logits. Derivation: the two runs store every
@@ -2654,8 +2726,7 @@ def lm_phase() -> dict:
 
     mxq.reset_launch_counts()
     ops.reset_kernel_stats()
-    res = serve_lib.serve(["--arch", LM_ARCH, "--batch", "4",
-                           "--prompt-len", "512", "--gen", "32"])
+    res = serve_lib.serve(SERVE_DRIVER, on_mesh=False)
     launches = mxq.launch_counts()["flash_attention"]
     if (launches != layers * 32
             or ops.kernel_stats().get("flash_attention") != {"cuda":
@@ -2666,6 +2737,9 @@ def lm_phase() -> dict:
     out["serve_driver"] = {k: res[k] for k in (
         "prefill_s", "decode_s", "decode_tok_per_s", "peak_bytes")}
     out["serve_driver"]["launches"] = launches
+    out["driver_runs"] = {"serve": {"tokens": res["tokens"],
+                                    "logits": res["logits"].cpu(),
+                                    "launches": launches}}
     log("lm", f"serve driver (fp32, batch 4, prompt 512, 32 tokens): prefill "
         f"{res['prefill_s'] * 1e3:.1f} ms, decode "
         f"{res['decode_tok_per_s']:.1f} tok/s, peak "
@@ -2678,9 +2752,8 @@ def lm_phase() -> dict:
     try:
         mxq.reset_launch_counts()
         ops.reset_kernel_stats()
-        res = train_lib.train(["--arch", LM_ARCH, "--steps", "3", "--batch",
-                               "1", "--seq", "1024", "--log-every", "1",
-                               "--checkpoint-dir", ckpt])
+        res = train_lib.train(TRAIN_DRIVER + ["--checkpoint-dir", ckpt],
+                              on_mesh=False)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     launches = mxq.launch_counts()["flash_attention"]
@@ -2701,6 +2774,10 @@ def lm_phase() -> dict:
         f"{[round(x, 3) for x in res['step_s']]} s, peak "
         f"{res['peak_bytes'] / 2**30:.2f} GiB, {launches} attention "
         f"launches (forward and recompute, {layers} each a step), all cuda")
+    out["driver_runs"]["train"] = {
+        "loss": res["loss"], "launches": launches,
+        "params": [p.cpu() for p in tree_leaves(res["params"])]}
+    del res
     out["launches_lm"] = {"prefill": layers, "decode_step": layers,
                           "serve_run": layers * (1 + LM_GEN),
                           "full_pass": readings["full_pass_launches"],
@@ -3331,6 +3408,244 @@ def mixer_phase() -> dict:
     return out
 
 
+# Phase 15's per-shard runs: R shards of gemma2-2b's attention at full
+# width in bf16; decode positions (the last fills every shard; the first
+# leaves the last two of four shards with no valid slot).
+SHARDS = 4
+SHARD_DECODE_T = (8223, 3000)
+SHARD_SEQ = 8192
+
+
+def same_runs(tag: str, first: dict, second: dict, keys) -> None:
+    """Raise unless ``second``'s ``keys`` equal ``first``'s bit for bit
+    (tensors, lists of tensors, numpy arrays or floats)."""
+    import numpy as np
+
+    for key in keys:
+        a, b = first[key], second[key]
+        if isinstance(a, list) and a and hasattr(a[0], "dtype"):
+            same = len(a) == len(b) and all(
+                same_bits(x, y) for x, y in zip(a, b))
+        elif hasattr(a, "dtype") and not isinstance(a, np.ndarray):
+            same = same_bits(a, b)
+        else:
+            same = np.array_equal(np.asarray(a), np.asarray(b))
+        if not same:
+            raise AssertionError(f"sharding: the {tag} driver on the host "
+                                 f"mesh differs from phase 13's in {key}")
+
+
+def sharded_drivers(runs: dict) -> dict:
+    """Phase 15 (i): the serve and train drivers on
+    ``make_host_mesh(1)`` — a one-rank NCCL group, the rules of their
+    shapes, the prefill / decode / train bundles — at phase 13's setups,
+    against phase 13's runs of the same drivers with no mesh: tokens,
+    decode logits, losses and final parameters bit for bit, every
+    attention launch "cuda" and as many as phase 13's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for tag in ("serve", "train"):
+        mxq.reset_launch_counts()
+        ops.reset_kernel_stats()
+        t0 = time.perf_counter()
+        if tag == "serve":
+            res = serve_lib.serve(SERVE_DRIVER)
+            got = {"tokens": res["tokens"], "logits": res["logits"].cpu()}
+            keys = ("tokens", "logits")
+        else:
+            ckpt = tempfile.mkdtemp(prefix="lm_ckpt_")
+            try:
+                res = train_lib.train(TRAIN_DRIVER + ["--checkpoint-dir",
+                                                      ckpt])
+            finally:
+                shutil.rmtree(ckpt, ignore_errors=True)
+            got = {"loss": res["loss"],
+                   "params": [p.cpu() for p in tree_leaves(res["params"])]}
+            keys = ("loss", "params")
+        wall = time.perf_counter() - t0
+        del res
+        torch.cuda.empty_cache()
+        launches = mxq.launch_counts()["flash_attention"]
+        if (launches != runs[tag]["launches"] or ops.kernel_stats().get(
+                "flash_attention") != {"cuda": launches}):
+            raise AssertionError(f"sharding: {tag} driver on the mesh: "
+                                 f"{launches} attention launches, "
+                                 f"{ops.kernel_stats()}; expected "
+                                 f"{runs[tag]['launches']}, all cuda")
+        same_runs(tag, runs[tag], got, keys)
+        out[tag] = {"launches": launches, "wall_s": wall}
+        log("sharding", f"{tag} driver on make_host_mesh(1) (one-rank NCCL "
+            f"group, bundles of launch/steps.py): {', '.join(keys)} equal "
+            f"phase 13's run with no mesh bit for bit; {launches} attention "
+            f"launches, all cuda; {wall:.2f} s")
+    return out
+
+
+def shard_decode(gen, dev) -> dict:
+    """Phase 15 (ii): gemma2-2b's decode against its 8224-slot global ring
+    in bf16 (batch 4, 8 heads over 4 kv heads, D 256, softcap 50), the
+    slots cut into SHARDS ranges: each through ``decode_shard`` (the
+    kernel with lse; none for a shard with no valid slot), merged by
+    ``merge_decode_shards`` over the stacked results, held to the
+    unsharded kernel decode (``flash_decode``) within phase 7's bf16
+    limits, at each of SHARD_DECODE_T."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.models import attention as attn
+
+    cfg = get_arch(LM_ARCH)
+    ring = LM_PROMPT + LM_GEN
+    b, h, kvh, d = LM_BATCH, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    opts = dict(logit_softcap=cfg.attn_softcap, scale=attn._qscale(cfg))
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, kvh, ring, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    per = ring // SHARDS
+    rows = []
+    for t in SHARD_DECODE_T:
+        n_all = min(t + 1, ring)
+        counts = [max(0, min(n_all - r * per, per)) for r in range(SHARDS)]
+
+        def shards():
+            return [attn.decode_shard(q, k[:, :, r * per:(r + 1) * per],
+                                      v[:, :, r * per:(r + 1) * per], n,
+                                      **opts)
+                    for r, n in enumerate(counts)]
+
+        before = mxq.launch_counts()["flash_attention"]
+        parts = shards()
+        launches = mxq.launch_counts()["flash_attention"] - before
+        merged = attn.merge_decode_shards(
+            torch.stack([o for o, _ in parts]),
+            torch.stack([lse for _, lse in parts]),
+            lambda x: x.amax(0), lambda x: x.sum(0))
+        whole = attn.flash_decode(q, k, v, t, **opts)
+        torch.cuda.synchronize()
+        err, reading, share = attention_within(
+            f"sharded decode t={t}", merged, whole, "bfloat16",
+            f"the unsharded decode ({SHARDS} shards)")
+        if launches != sum(1 for n in counts if n):
+            raise AssertionError(f"sharding: decode t={t}: {launches} "
+                                 f"launches for valid slots {counts}")
+        row = {"t": t, "valid_slots": counts, "launches": launches,
+               "max_abs_err": err, "tol_reading": reading,
+               "rms_share": share,
+               "shard_ms": [time_ms(lambda: attn.decode_shard(
+                   q, k[:, :, r * per:(r + 1) * per],
+                   v[:, :, r * per:(r + 1) * per], n, **opts))
+                   for r, n in enumerate(counts)],
+               "shard_bound_ms": [attention_bound_ms(
+                   (b, 1, n, h, kvh, d), 2, n)[0] if n else 0.0
+                   for n in counts],
+               "unsharded_ms": time_ms(lambda: attn.flash_decode(
+                   q, k, v, t, **opts))}
+        rows.append(row)
+        log("sharding", "decode t={t} over {n} shards, valid slots "
+            "{valid_slots}: {launches} kernel launches (with lse), merged "
+            "vs unsharded max err {max_abs_err:.3g} ({tol_reading:.3g} of "
+            "the limit), RMS share {rms_share:.3g}; per-shard kernel ms "
+            "{shard_ms} (bounds {shard_bound_ms}) against {unsharded_ms:.4f}"
+            " ms unsharded".format(n=SHARDS, **row))
+    return {"shape_b_h_kv_ring_d": [b, h, kvh, ring, d], "cases": rows}
+
+
+def shard_seq(gen, dev) -> dict:
+    """Phase 15 (iii): gemma2-2b's global layer and a local layer (window
+    4096) at 1 x SHARD_SEQ in bf16, the queries cut into SHARDS slices,
+    each through ``seq_shard`` (the kernel with its ``q_offset`` against
+    the whole K/V), concatenated and held to the unsharded kernel call
+    within phase 7's bf16 limits."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+
+    cfg = get_arch(LM_ARCH)
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((1, SHARD_SEQ, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((1, SHARD_SEQ, kvh, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    per = SHARD_SEQ // SHARDS
+    rows = []
+    for label, window in (("global layer", None),
+                          ("local layer", cfg.local_window)):
+        opts = dict(window=window, logit_softcap=cfg.attn_softcap,
+                    scale=attn._qscale(cfg))
+
+        def shard(r):
+            return attn.seq_shard(q[:, r * per:(r + 1) * per], k, v,
+                                  r * per, **opts)
+
+        before = mxq.launch_counts()["flash_attention"]
+        merged = torch.cat([shard(r) for r in range(SHARDS)], 1)
+        launches = mxq.launch_counts()["flash_attention"] - before
+        whole = ops.flash_attention(q, k, v, causal=True, window=window,
+                                    softcap=cfg.attn_softcap,
+                                    scale=attn._qscale(cfg))
+        torch.cuda.synchronize()
+        err, reading, share = attention_within(
+            f"sequence-parallel {label}", merged, whole, "bfloat16",
+            f"the unsharded call ({SHARDS} query slices)")
+        row = {"layer": label, "window": window, "launches": launches,
+               "max_abs_err": err, "tol_reading": reading,
+               "rms_share": share,
+               "shard_ms": [time_ms(lambda: shard(r))
+                            for r in range(SHARDS)],
+               "shard_bound_ms": [attention_bound_ms(
+                   (1, per, SHARD_SEQ, h, kvh, d), 2, attention_pairs(
+                       per, SHARD_SEQ, True, window, r * per))[0]
+                   for r in range(SHARDS)],
+               "unsharded_ms": time_ms(lambda: ops.flash_attention(
+                   q, k, v, causal=True, window=window,
+                   softcap=cfg.attn_softcap, scale=attn._qscale(cfg)))}
+        rows.append(row)
+        log("sharding", "sequence-parallel {layer} (window {window}) 1 x "
+            "{s} over {n} query slices: {launches} kernel launches, "
+            "concatenated vs unsharded max err {max_abs_err:.3g} "
+            "({tol_reading:.3g} of the limit), RMS share {rms_share:.3g}; "
+            "per-shard kernel ms {shard_ms} (bounds {shard_bound_ms}) "
+            "against {unsharded_ms:.4f} ms unsharded".format(
+                s=SHARD_SEQ, n=SHARDS, **row))
+    return {"shape_b_s_h_kv_d": [1, SHARD_SEQ, h, kvh, d], "cases": rows}
+
+
+def sharding_phase(runs: dict) -> dict:
+    """Phase 15: the mesh half on one card — the drivers on the host mesh
+    against phase 13's (``sharded_drivers``), then the per-shard decode
+    (``shard_decode``) and sequence-parallel attention (``shard_seq``) at
+    full width. It runs last: the drivers start and end a one-rank
+    process group. Returns the readings and the attention launches."""
+    import torch
+
+    out = {"drivers": sharded_drivers(runs)}
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out["decode"] = shard_decode(gen, "cuda")
+    torch.cuda.empty_cache()
+    out["seq_parallel"] = shard_seq(gen, "cuda")
+    out["launches"] = {
+        "serve_driver": out["drivers"]["serve"]["launches"],
+        "train_driver": out["drivers"]["train"]["launches"],
+        "decode_shards": [row["launches"] for row in out["decode"]["cases"]],
+        "seq_shards": [row["launches"]
+                       for row in out["seq_parallel"]["cases"]]}
+    return out
+
+
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
 GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
     "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
@@ -3938,6 +4253,12 @@ def main() -> None:
     print("[mixers] summary " + json.dumps(mixers, default=float),
           flush=True)
 
+    # --------------------------------------------------------- 15 sharding
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharding = sharding_phase(lm.pop("driver_runs"))
+    log("sharding", f"phase done in {time.perf_counter() - t0:.2f} s")
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -3990,6 +4311,13 @@ def main() -> None:
             **{arch: mixers[arch]["launches"]
                for arch, *_ in MIXER_MODELS},
             "serve_example": mixers["serve_example"]["launches"]},
+        "launches_sharding": sharding["launches"],
+        "lse_max_abs_err": max(row["lse_max_abs_err"] for row in
+                               attention_rows
+                               if row["lse_max_abs_err"] is not None),
+        "lse_cases": list(LSE_CASES),
+        "sharding": {key: sharding[key] for key in ("decode",
+                                                    "seq_parallel")},
         "cases": attention_rows})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

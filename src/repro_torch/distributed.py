@@ -1,12 +1,23 @@
-"""Declarative parameter trees (the parameter-spec half of the JAX package's
-``distributed.py``): a tree of :class:`ParamDef` leaves can be initialized,
-shape-evaluated and stacked without duplicating the model's layout.
+"""Logical-axis sharding and declarative parameter trees (the JAX
+package's ``distributed.py``).
 
-``ParamDef.logical`` keeps the reference's logical axis names, which the
-sharding rules of a mesh map to placements. The rules themselves
-(``ShardingRules``, ``use_rules``, ``constrain``, the mesh helpers) are
-ROADMAP item 10c; on one card every constraint is the identity, so the
-model code calls none.
+Model code names each tensor axis by a *logical* name; a
+:class:`ShardingRules` mapping, installed with :func:`use_rules` together
+with a mesh, translates the names to a :class:`PartitionSpec` of mesh
+axes. The port's mesh is a ``torch.distributed`` ``DeviceMesh`` whose
+``mesh_dim_names`` are the axis names (``launch/mesh.py``), and a spec
+becomes DTensor placements (:func:`placements`): ``Shard(d)`` on every mesh
+dim that tensor dim ``d`` is split over, ``Replicate()`` elsewhere.
+:func:`constrain` redistributes a DTensor to its spec's placements (the
+reference's ``with_sharding_constraint``). Outside a mesh, or on a mesh of
+one rank, tensors stay plain and every constraint is the identity, so the
+same model code runs on one card bit for bit as without rules. The
+production meshes (``launch/mesh.py::make_production_mesh``) are abstract:
+axis names and sizes that the rules and spec derivations read.
+
+A tree of :class:`ParamDef` leaves can be initialized, shape-evaluated,
+stacked and given specs without duplicating the model's layout.
+``ParamDef.logical`` keeps the reference's logical axis names.
 
 Random leaves are drawn from an explicit ``torch.Generator``, leaf after
 leaf in tree order, on the generator's device: a full-width init on the
@@ -16,12 +27,238 @@ differ, so the tests carry weights across (``repro_torch.convert``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.tree import tree_map
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+
+
+class PartitionSpec(tuple):
+    """Per leaf axis, the mesh axis name (or tuple of names) it is split
+    over, or ``None`` (the JAX ``PartitionSpec``, which also stores a
+    one-name tuple as the name)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (
+            a[0] if isinstance(a, (tuple, list)) and len(a) == 1
+            else tuple(a) if isinstance(a, list) else a for a in axes))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+
+class ShardingRules(dict):
+    """Maps logical axis name -> mesh axis (or tuple of axes, or None)."""
+
+    def spec_for(self, logical_axes: Sequence[Optional[str]]
+                 ) -> PartitionSpec:
+        """The spec of a tensor whose axes carry ``logical_axes``. A mesh
+        axis already used by an earlier dim is dropped (a mesh axis splits
+        at most one dim of a tensor), as in the reference."""
+        out = []
+        used: set = set()
+        for name in logical_axes:
+            axes = self.get(name) if name is not None else None
+            if isinstance(axes, (tuple, list)):
+                axes = tuple(a for a in axes if a not in used)
+                used.update(axes)
+                axes = axes if axes else None
+                if isinstance(axes, tuple) and len(axes) == 1:
+                    axes = axes[0]
+            elif isinstance(axes, str):
+                if axes in used:
+                    axes = None
+                else:
+                    used.add(axes)
+            out.append(axes)
+        return PartitionSpec(*out)
+
+
+_STATE = threading.local()
+
+
+def current_rules() -> Optional[ShardingRules]:
+    return getattr(_STATE, "rules", None)
+
+
+def current_mesh():
+    return getattr(_STATE, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[ShardingRules], mesh=None):
+    """Install ``rules`` and ``mesh`` for the calling thread (restored on
+    exit). On a ``DeviceMesh`` of more than one rank, plain tensors that
+    meet DTensors in an operation (positions, rope tables, masks) count as
+    replicated."""
+    prev = (getattr(_STATE, "rules", None), getattr(_STATE, "mesh", None),
+            getattr(_STATE, "ranks", 1))
+    _STATE.rules, _STATE.mesh = rules, mesh
+    _STATE.ranks = mesh_size(mesh)
+    try:
+        if is_device_mesh(mesh) and _STATE.ranks > 1:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            with implicit_replication():
+                yield
+        else:
+            yield
+    finally:
+        _STATE.rules, _STATE.mesh, _STATE.ranks = prev
+
+
+# ------------------------------------------------------------------- meshes
+def is_device_mesh(mesh) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(mesh, DeviceMesh)
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    """The axis names of a ``DeviceMesh`` or of an abstract mesh."""
+    if is_device_mesh(mesh):
+        return tuple(mesh.mesh_dim_names)
+    return tuple(mesh.axis_names)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or of an abstract mesh."""
+    if is_device_mesh(mesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def mesh_axis_size(mesh, axes: MeshAxes) -> int:
+    if mesh is None or axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = axis_sizes(mesh)
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    return size
+
+
+def mesh_size(mesh) -> int:
+    """Ranks (or devices) of the whole mesh; 1 without one."""
+    if mesh is None:
+        return 1
+    return mesh_axis_size(mesh, axis_names(mesh))
+
+
+def spec_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, in order."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: PartitionSpec, mesh) -> List:
+    """DTensor placements of ``spec`` over a ``DeviceMesh``, one per mesh
+    dim: ``Shard(d)`` where tensor dim d is split over that mesh dim, else
+    ``Replicate()``. A tuple entry splits its dim over several mesh dims,
+    the first the outermost, which DTensor's order of mesh dims gives only
+    when the tuple follows the mesh's order: otherwise this raises. A mesh
+    dim of one rank replicates (a split in one piece is the whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = axis_names(mesh)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        unknown = [a for a in axes if a not in names]
+        if unknown:
+            raise ValueError(f"{spec} names axes {unknown} that the mesh "
+                             f"{names} does not have")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: the axes {axes} of dim {d} are not in "
+                             f"the mesh's order {names}")
+        for i in idx:
+            if mesh.size(i) > 1:
+                out[i] = Shard(d)
+    return out
+
+
+_DTENSOR = []  # the DTensor class, imported at first use
+
+
+def is_dtensor(x) -> bool:
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+
+        _DTENSOR.append(DTensor)
+    return isinstance(x, _DTENSOR[0])
+
+
+def full_tensor(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank (a collective); a plain
+    tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def local_range(x, dim: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's part of DTensor ``x`` along
+    ``dim``: the mesh dims that shard it split it in mesh order, each in
+    ``torch.chunk``'s pieces, as DTensor lays a ``Shard`` out."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    offset, size = 0, x.shape[dim]
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim % x.ndim == dim % x.ndim:
+            n = mesh.size(i)
+            chunk = -(-size // n)
+            start = min(coord[i] * chunk, size)
+            stop = min(start + chunk, size)
+            offset, size = offset + start, stop - start
+    return offset, size
+
+
+def logical_spec(*logical_axes: Optional[str]) -> PartitionSpec:
+    rules = current_rules()
+    if rules is None:
+        return PartitionSpec()
+    return rules.spec_for(logical_axes)
+
+
+def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """``x`` laid out as its logical axes say under the current rules and
+    mesh: a DTensor is redistributed to the spec's placements. The
+    identity without rules or a mesh, and for a plain tensor on a mesh of
+    one rank; a plain tensor on a mesh of more ranks raises."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None or mesh is None:
+        return x
+    if x.ndim != len(logical_axes):
+        raise ValueError(f"rank {x.ndim} vs logical axes {logical_axes}")
+    if not is_dtensor(x):
+        if _STATE.ranks > 1:
+            raise TypeError(
+                f"constrain{logical_axes}: a plain tensor of shape "
+                f"{tuple(x.shape)} under a mesh of {mesh_size(mesh)} ranks; "
+                "place it on the mesh first (param_shardings, "
+                "runtime.elastic.reshard_tree)")
+        return x
+    return x.redistribute(x.device_mesh,
+                          placements(rules.spec_for(logical_axes), mesh))
+
+
+def named_sharding(mesh, *logical_axes: Optional[str]):
+    from repro_torch.runtime.elastic import NamedSharding
+
+    rules = current_rules()
+    spec = rules.spec_for(logical_axes) if rules else PartitionSpec()
+    return NamedSharding(mesh, spec)
 
 
 class ParamDef:
@@ -80,6 +317,34 @@ def init_params(defs, gen: torch.Generator,
 def param_shapes(defs):
     """The tree of meta tensors: shapes and dtypes, no storage."""
     return tree_map(lambda d: d.meta(), defs, is_leaf=is_param_def)
+
+
+def param_specs(defs):
+    """PartitionSpec tree for a ParamDef tree under the current rules."""
+    rules = current_rules() or ShardingRules()
+    return tree_map(lambda d: rules.spec_for(d.logical), defs,
+                    is_leaf=is_param_def)
+
+
+def param_shardings(defs, mesh):
+    """A tree of ``runtime.elastic.NamedSharding`` on ``mesh``, one per
+    ParamDef, under the current rules."""
+    from repro_torch.runtime.elastic import shardings_for
+
+    return shardings_for(mesh, param_specs(defs))
+
+
+def place_tree(tree, defs):
+    """``tree`` (tensors like the ParamDef tree ``defs``) laid out by
+    ``defs``' specs under the current rules and mesh; unchanged without
+    rules or a ``DeviceMesh`` of more than one rank."""
+    mesh = current_mesh()
+    if (current_rules() is None or not is_device_mesh(mesh)
+            or mesh_size(mesh) == 1):
+        return tree
+    from repro_torch.runtime.elastic import reshard_tree
+
+    return reshard_tree(tree, param_shardings(defs, mesh))
 
 
 def stack_defs(defs_list):

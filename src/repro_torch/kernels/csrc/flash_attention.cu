@@ -65,6 +65,14 @@
 // / max(l, 1e-30). Results repeat bit for bit; a row whose every piece
 // has l = 0 comes out 0.
 //
+// Row log-sum-exp. Given an lse pointer (fp32 [B, Sq, H]), each row's
+// log sum_j e^(s_j) = m + log l over its unmasked keys is written once: by
+// the single-piece CTA from its final m and l, or by the combine from the
+// merged ones (the thread of the row's first output element). A row with
+// no key gets -inf. A sequence-sharded decode merges shards' outputs by it
+// (models/attention.py::merge_decode_shards). With a null pointer nothing
+// else changes.
+//
 // Bound: 4 * D FLOPs per unmasked (query, key) pair and head, and the
 // bytes of q, k, v and o once each, against 989 TFLOP/s and 3.35 TB/s.
 // ViT-B/16 (32, 197, 12, 64) fp32 is bytes-bound (3.8 GFLOP, 77.5 MB: 23
@@ -110,7 +118,13 @@ struct Params {
   int splits, split_lo, split_len;
   float* part_o;   // [splits, B * H, Sq, D] unnormalized O (splits > 1)
   float* part_ml;  // [splits, B * H, Sq, 2] (m, l)
+  float* lse;      // [B, Sq, H] row log-sum-exp, or null
 };
+
+// log l + m of a row, -inf where no key contributed (l = 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float((int)0xff800000u);
+}
 
 // Tile shapes of one instantiation: 64 query rows a CTA (16 a warp), BK
 // keys per kv tile, two stages of K and V in shared memory. Row strides
@@ -590,6 +604,8 @@ attention_kernel(Params p) {
       for (int n = 0; n < D / 8; ++n)
         store2(orow + 8 * n + 2 * t, o[n][2 * r] / denom,
                o[n][2 * r + 1] / denom);
+      if (p.lse != nullptr && t == 0)
+        p.lse[((long long)bi * p.sq + row) * p.h + hi] = row_lse(m[r], l_row);
     } else {
       const long long prow =
           ((long long)split * gridDim.y + bh) * p.sq + row;
@@ -625,6 +641,8 @@ __global__ void combine_kernel(Params p, long long rows) {
     T* out = (T*)p.o + (bh / p.h) * p.o_sb + row * p.o_ss +
              (bh % p.h) * p.o_sh + dd;
     store1(out, acc / fmaxf(l, 1e-30f));
+    if (p.lse != nullptr && dd == 0)
+      p.lse[((bh / p.h) * p.sq + row) * p.h + bh % p.h] = row_lse(mx, l);
   }
 }
 
@@ -677,7 +695,8 @@ int launch_d(const Params& p, int batch, cudaStream_t stream) {
 // (else fp32). (splits, split_lo, split_len) is the kv split of
 // flash_attention.py::attention_plan; with splits > 1, part_o [splits, B *
 // H, Sq, D] and part_ml [splits, B * H, Sq, 2] are fp32 workspaces and a
-// combine launch follows. Launches nothing when the output is empty.
+// combine launch follows. lse: fp32 [B, Sq, H] for the rows' log-sum-exp,
+// or null. Launches nothing when the output is empty.
 // Returns the CUDA error code of the launches.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int is_bf16,
@@ -687,7 +706,7 @@ extern "C" int flash_attention_fwd(
     long long o_sb, long long o_ss, long long o_sh, float scale,
     int has_softcap, float softcap, int causal, int has_window, int window,
     int q_offset, int splits, int split_lo, int split_len, void* part_o,
-    void* part_ml, void* stream) {
+    void* part_ml, void* lse, void* stream) {
   if (batch <= 0 || h <= 0 || sq <= 0) return 0;
   if (kvh <= 0 || h % kvh || splits < 1) return (int)cudaErrorInvalidValue;
   Params p;
@@ -706,6 +725,7 @@ extern "C" int flash_attention_fwd(
   p.splits = splits, p.split_lo = split_lo, p.split_len = split_len;
   p.part_o = (float*)part_o;
   p.part_ml = (float*)part_ml;
+  p.lse = (float*)lse;
   cudaStream_t s = (cudaStream_t)stream;
   return is_bf16 ? launch_d<__nv_bfloat16>(p, batch, s)
                  : launch_d<float>(p, batch, s);

@@ -25,6 +25,10 @@ merges the partials in the fixed order s = 0..S-1
 pure function of the shapes and options, so a call repeats bit for bit;
 the launch counter counts one ``"flash_attention"`` per call.
 
+With ``return_lse`` the kernel also writes each query row's log-sum-exp
+(fp32 [B, Sq, H], -inf for a row with no key): a sequence-sharded decode
+merges its shards' outputs by it (``models/attention.py``).
+
 Only a CUDA tensor reaches this wrapper (``kernels/ops.py`` routes a CPU
 tensor to the plain version); it raises on anything the kernel does not
 take and when the launch reports an error — there is no fallback.
@@ -115,9 +119,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None,
                          softcap: Optional[float] = None,
                          scale: Optional[float] = None,
-                         q_offset: int = 0) -> torch.Tensor:
+                         q_offset: int = 0, return_lse: bool = False):
     """q [B, Sq, H, D], k/v [B, Skv, Kv, D] on the card -> [B, Sq, H, D]
-    in q's dtype (contiguous); query head h reads kv head h // (H / Kv)."""
+    in q's dtype (contiguous); query head h reads kv head h // (H / Kv).
+    With ``return_lse``: (out, lse [B, Sq, H] fp32)."""
     q = _operand(q, "flash_attention_cuda q")
     k = _operand(k, "flash_attention_cuda k")
     v = _operand(v, "flash_attention_cuda v")
@@ -138,6 +143,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"B * H = {b * h} above {_MAX_BATCH_HEADS}")
     scale = d ** -0.5 if scale is None else float(scale)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     plan = attention_plan(b, h, sq, skv, causal=causal, window=window,
                           q_offset=q_offset)
     part_o = part_ml = None
@@ -155,8 +162,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         0.0 if softcap is None else float(softcap), int(causal),
         int(window is not None), 0 if window is None else int(window),
         int(q_offset), *plan, 0 if part_o is None else part_o.data_ptr(),
-        0 if part_ml is None else part_ml.data_ptr())
+        0 if part_ml is None else part_ml.data_ptr(),
+        0 if lse is None else lse.data_ptr())
     _mq.check(lib, code, "flash_attention")
     if out.numel():
         _mq.count_launch("flash_attention")
-    return out
+    return (out, lse) if return_lse else out

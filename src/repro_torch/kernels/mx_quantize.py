@@ -158,7 +158,7 @@ _SIGNATURES = {
                                                    _PTR],
     "flash_attention_fwd": [_PTR] * 4 + [_I32] * 7 + [_I64] * 12
     + [_F32, _I32, _F32, _I32, _I32, _I32, _I32] + [_I32] * 3
-    + [_PTR] * 3,
+    + [_PTR] * 4,
 }
 
 # The grouped quantize kernels' launch table, as csrc/mx_quantize.cu lays it

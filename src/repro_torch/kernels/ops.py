@@ -293,51 +293,63 @@ class _FlashAttention(torch.autograd.Function):
     Under ``torch.func.vmap`` (a fleet serving every lane's ViT in one
     program) the :meth:`vmap` rule folds the vmapped axis into the
     kernel's own batch axis B, runs the same kernel (or plain version)
-    once, and unfolds the result."""
+    once, and unfolds the result.
+
+    With ``lse`` the forward also returns the rows' log-sum-exp, which is
+    not differentiable."""
 
     @staticmethod
-    def forward(q, k, v, path, opts):
+    def forward(q, k, v, path, opts, lse):
         if path == "cuda":
-            return _fa.flash_attention_cuda(q, k, v, **opts)
-        return _ref.flash_attention_ref(q, k, v, **opts)
+            return _fa.flash_attention_cuda(q, k, v, return_lse=lse, **opts)
+        return _ref.flash_attention_ref(q, k, v, return_lse=lse, **opts)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, _path, opts = inputs
+        q, k, v, _path, opts, lse = inputs
         ctx.save_for_backward(q, k, v)
         ctx.opts = opts
+        if lse:
+            ctx.mark_non_differentiable(output[1])
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, path, opts):
+    def vmap(info, in_dims, q, k, v, path, opts, lse):
         def fold(t, dim):
             t = (t.unsqueeze(0).expand(info.batch_size, *t.shape)
                  if dim is None else t.movedim(dim, 0))
             return t.reshape(-1, *t.shape[2:])
 
+        def unfold(t):
+            return t.reshape(info.batch_size, -1, *t.shape[1:])
+
         q, k, v = (fold(t, d) for t, d in zip((q, k, v), in_dims[:3]))
-        out = _FlashAttention.apply(q, k, v, path, opts)
-        return out.reshape(info.batch_size, -1, *out.shape[1:]), 0
+        out = _FlashAttention.apply(q, k, v, path, opts, lse)
+        if lse:
+            return (unfold(out[0]), unfold(out[1])), (0, 0)
+        return unfold(out), 0
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, *_lse_grad):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = _ref.flash_attention_bwd_ref(q, k, v, do, **ctx.opts)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """Flash attention; q [B, Sq, H, D], k/v [B, Skv, Kv, D] -> [B, Sq, H,
     D] in q's dtype, differentiable. Query row i sits at position
-    ``q_offset + i``, as in the Pallas kernel (see ``ref.py``). The Pallas
-    tile sizes ``qb`` / ``kvb`` and ``interpret`` are TPU tiling and are not
-    ported."""
+    ``q_offset + i``, as in the Pallas kernel (see ``ref.py``). With
+    ``return_lse``: (out, lse [B, Sq, H] fp32), the rows' log-sum-exp from
+    the kernel (-inf for a row with no key; not differentiable). The
+    Pallas tile sizes ``qb`` / ``kvb`` and ``interpret`` are TPU tiling and
+    are not ported."""
     path = _shared_path(q, k, v)
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                 q_offset=q_offset)
-    out = _FlashAttention.apply(q, k, v, path, opts)
+    out = _FlashAttention.apply(q, k, v, path, opts, return_lse)
     _count("flash_attention", path)
     return out

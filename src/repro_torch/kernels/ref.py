@@ -317,15 +317,26 @@ def _attention_scores(q, k, *, causal, window, softcap, scale, q_offset):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window=None, softcap=None,
-                        scale=None, q_offset: int = 0) -> torch.Tensor:
+                        scale=None, q_offset: int = 0,
+                        return_lse: bool = False):
     """q [B, Sq, H, D], k/v [B, Skv, Kv, D] -> [B, Sq, H, D] in q's dtype:
-    ``(P̃ @ v) / l``, as the kernel divides its accumulator at the end."""
+    ``(P̃ @ v) / l``, as the kernel divides its accumulator at the end.
+    With ``return_lse``: (out, lse [B, Sq, H] fp32), lse = m + log l over
+    the row's unmasked keys, -inf for a row with none."""
     b, sq, h, d = q.shape
-    p, l, _, _ = _attention_scores(q, k, causal=causal, window=window,
+    s, mask, _, _ = _masked_logits(q, k, causal=causal, window=window,
                                    softcap=softcap, scale=scale,
                                    q_offset=q_offset)
-    o = torch.einsum("bkgqt,btkd->bkgqd", p, v.to(p.dtype)) / l
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l_raw = p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqt,btkd->bkgqd", p, v.to(p.dtype)) / l_raw.clamp_min(
+        1e-30)
+    out = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l_raw > 0, m + torch.log(l_raw), float("-inf"))
+    return out, lse[..., 0].permute(0, 3, 1, 2).reshape(b, sq, h).float()
 
 
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ParamDef
+from repro_torch.distributed import ParamDef, constrain
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -111,6 +111,8 @@ def mlp_forward(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         u = x @ params["w_up"]
         act = (F.silu(g) if cfg.mlp == "swiglu"
                else F.gelu(g, approximate="tanh"))
-        return (act * u) @ params["w_down"]
+        h = constrain(act * u, "act_batch", "act_seq", "ff")
+        return h @ params["w_down"]
     h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+    h = constrain(h, "act_batch", "act_seq", "ff")
     return h @ params["w_down"] + params["b_down"]

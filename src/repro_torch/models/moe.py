@@ -8,8 +8,9 @@ fission (virtual experts) (the JAX package's ``models/moe.py``).
 * **Expert fission** — the experts' weights may hold r virtual experts per
   expert (each a d_ff slice: exact for SwiGLU, the down projections sum).
   ``moe_forward`` reads r from the weights' shape. ``expert_split_factor``
-  picks r from a mesh's expert axis, which is ROADMAP item 10c: on one
-  card it is 1.
+  picks r from the expert axis of the current mesh and rules (mixtral's
+  8 experts become 16 virtual experts on a 16-way axis); without a mesh
+  it is 1.
 
 The reference dispatches and combines with one-hot einsums over [tokens,
 experts, capacity]. The port computes the same function with indices: a
@@ -24,17 +25,31 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ParamDef
+from repro_torch.distributed import (
+    ParamDef,
+    constrain,
+    current_mesh,
+    current_rules,
+    mesh_axis_size,
+)
 from repro_torch.models.layers import param_dtype
 
 MOE_GROUP = 512  # tokens per routing group (read at call time)
 
 
 def expert_split_factor(cfg: ArchConfig) -> int:
-    """Virtual experts per expert: 1 while no mesh is set, as in the
-    reference without a mesh. Choosing r from a mesh's expert axis is
-    ROADMAP item 10c."""
-    return 1
+    """Virtual experts per expert: the smallest r with num_experts * r
+    divisible by the expert axis's size (and r dividing d_ff) under the
+    current rules and mesh; 1 without them, or where no r up to the
+    axis's size fits."""
+    rules, mesh = current_rules(), current_mesh()
+    ep = mesh_axis_size(mesh, rules.get("expert")) if (rules and mesh) else 1
+    r = 1
+    while (cfg.num_experts * r) % ep or cfg.d_ff % r:
+        r += 1
+        if r > ep:
+            return 1
+    return r
 
 
 def moe_defs(cfg: ArchConfig):
@@ -111,9 +126,12 @@ def moe_forward(params, x: torch.Tensor, cfg: ArchConfig, *,
     xe = xe.reshape(b, e * cap + 1, d)[:, :e * cap].reshape(b, e, cap, d)
     if r > 1:  # each expert's tokens go to its r virtual experts
         xe = xe.repeat_interleave(r, dim=1)
+    xe = constrain(xe, "act_batch", "expert", None, None)
     g = torch.einsum("becd,edf->becf", xe, params["w_gate"])
     u = torch.einsum("becd,edf->becf", xe, params["w_up"])
-    ye = torch.einsum("becf,efd->becd", F.silu(g) * u, params["w_down"])
+    h = constrain(F.silu(g) * u, "act_batch", "expert", None, "expert_ff")
+    ye = torch.einsum("becf,efd->becd", h, params["w_down"])
+    ye = constrain(ye, "act_batch", "expert", None, None)
     if r > 1:  # a token's expert output sums its virtual experts'
         ye = ye.reshape(b, e, r, cap, d).sum(2)
 

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.dacapo_pairs import VisionConfig
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 _STAGES = {
     18: ((2, 2, 2, 2), "basic"),
@@ -183,3 +183,7 @@ def resnet_flops(cfg: VisionConfig) -> float:
         h, w = h2, w2
     total += 2 * block_plan(cfg)[-1][3] * cfg.num_classes
     return total
+
+
+def resnet_param_count(params) -> int:
+    return sum(p.numel() for p in tree_leaves(params))

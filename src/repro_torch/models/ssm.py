@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ParamDef
+from repro_torch.distributed import ParamDef, constrain
 from repro_torch.models.layers import param_dtype
 
 MAMBA_CHUNK = 32  # tokens per scan chunk (read at call time)
@@ -126,7 +126,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     di = cfg.mamba_expand * d
     ds = cfg.mamba_d_state
 
-    xi = x @ params["w_in_x"]
+    xi = constrain(x @ params["w_in_x"], "act_batch", "act_seq", "ff")
     z = x @ params["w_in_z"]
 
     if mode == "decode":
@@ -160,6 +160,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
             cache["ssm"].copy_(h)
 
     y = (y * F.silu(z.float())).to(x.dtype)
+    y = constrain(y, "act_batch", "act_seq", "ff")
     return y @ params["w_out"], (cache if mode != "train" else None)
 
 

@@ -40,7 +40,13 @@ from repro_torch.configs.base import (
     MIXER_SLSTM,
 )
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import ParamDef, init_params, stack_defs
+from repro_torch.distributed import (
+    ParamDef,
+    constrain,
+    init_params,
+    place_tree,
+    stack_defs,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -114,7 +120,7 @@ def _block_forward(bp, x, cfg: ArchConfig, pos: int, *, mode: str,
         if cfg.post_block_norm:
             y = apply_norm(bp["post_norm2"], y, cfg)
         x = x + y
-    return x, aux
+    return constrain(x, "act_batch", "act_seq", "act_embed"), aux
 
 
 def _unbind(tree, n: int):
@@ -212,7 +218,8 @@ class LMModel:
         (updated in place) or None, aux)."""
         cfg = self.cfg
         positions, t = self._positions(positions, mode)
-        x = self.embed(params, inputs, positions, mode)
+        x = constrain(self.embed(params, inputs, positions, mode),
+                      "act_batch", "act_seq", "act_embed")
         rope = None
         if cfg.pos == "rope":
             sin, cos = rope_freqs(positions, cfg.resolved_head_dim,
@@ -271,8 +278,12 @@ class LMModel:
         mc [B,c]."""
         logits = softcap(self._head(params, xc).float(),
                          self.cfg.final_softcap)
+        logits = constrain(logits, "act_batch", "act_seq", None, "vocab")
         lse = torch.logsumexp(logits, dim=-1)  # [B,c,nH]
-        picked = torch.gather(logits, -1, lc[..., None])[..., 0]
+        # The gather over a vocab-sharded DTensor is a masked partial sum:
+        # reduced here, while it has the gather's shape.
+        picked = constrain(torch.gather(logits, -1, lc[..., None]),
+                           "act_batch", "act_seq", None, None)[..., 0]
         nll = (lse - picked).mean(-1) * mc
         correct = (logits.argmax(-1) == lc).all(-1) * mc
         return nll.sum(), correct.sum()
@@ -341,11 +352,20 @@ class LMModel:
         return tuple(caches)
 
     def init_caches(self, batch: int, capacity: int):
-        return tree_map(lambda d: d.initialize(None, self.device),
-                        self.cache_defs(batch, capacity),
-                        is_leaf=lambda d: isinstance(d, ParamDef))
+        """Empty caches on the model's device, laid out by their specs
+        under the current rules and mesh (``distributed.place_tree``)."""
+        defs = self.cache_defs(batch, capacity)
+        return place_tree(tree_map(lambda d: d.initialize(None, self.device),
+                                   defs, is_leaf=lambda d: isinstance(
+                                       d, ParamDef)), defs)
 
 
 def make_model(cfg: ArchConfig, device: DeviceLike = None) -> LMModel:
     """An LM on ``device`` (default ``cuda``; raises without a card)."""
     return LMModel(cfg, device)
+
+
+def init_cache_defs(cfg: ArchConfig, batch: int, capacity: int):
+    """The ParamDef tree of the decode caches (the model's
+    ``cache_defs``), without a device."""
+    return LMModel(cfg, "meta").cache_defs(batch, capacity)

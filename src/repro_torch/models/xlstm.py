@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ParamDef
+from repro_torch.distributed import ParamDef, constrain
 from repro_torch.models.layers import param_dtype
 from repro_torch.models.ssm import causal_conv, last_rows
 
@@ -126,7 +126,7 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     nh = cfg.num_heads
     dh = di // nh
 
-    xi = x @ params["w_in_x"]
+    xi = constrain(x @ params["w_in_x"], "act_batch", "act_seq", "ff")
     z = x @ params["w_in_z"]
     conv_state = cache["conv"] if mode == "decode" else None
     xc, new_conv = causal_conv(xi, params["conv_w"], params["conv_b"],
@@ -265,6 +265,7 @@ def slstm_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     # tanh approximation.
     y = (F.gelu(h @ params["w_up1"], approximate="tanh")
          * (h @ params["w_up2"]))
+    y = constrain(y, "act_batch", "act_seq", "ff")
     return y @ params["w_down"], (cache if mode != "train" else None)
 
 

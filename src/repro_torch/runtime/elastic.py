@@ -1,14 +1,19 @@
 """Elastic scaling: land live or restored state on a (possibly different)
 mesh (the JAX package's ``runtime/elastic.py``).
 
-A :class:`NamedSharding` is the port's record of where a leaf goes: a
-:class:`~repro_torch.core.partition.RowMesh` and a :class:`PartitionSpec`
-naming, per leaf axis, the mesh axes it is split over. One torch tensor
-lives on one device, so a leaf lands on its mesh's device: on one card
-every row of ``forced_row_mesh`` is ``cuda:0``, and any spec is a move to
-``cuda:0``. A mesh of distinct devices would need the leaf split or
-replicated over them (DTensor placements), which the port does not have
-(ROADMAP Queue 1, item 10c), and raises ``NotImplementedError``.
+A :class:`NamedSharding` is the port's record of where a leaf goes: a mesh
+and a :class:`PartitionSpec` naming, per leaf axis, the mesh axes it is
+split over. The mesh is one of two kinds:
+
+* a ``torch.distributed`` ``DeviceMesh`` (``launch/mesh.py``): a leaf is
+  laid out by ``distribute_tensor`` with its spec's DTensor placements
+  (``distributed.placements``), a DTensor leaf is redistributed; on a mesh
+  of one rank a leaf stays a plain tensor on the mesh's device;
+* a :class:`~repro_torch.core.partition.RowMesh` of the CL side, whose
+  rows name devices: a leaf lands on the one device they all hold (on one
+  card every row of ``forced_row_mesh`` is ``cuda:0``). A ``RowMesh`` of
+  distinct devices raises ``NotImplementedError``: such a layout is a
+  ``DeviceMesh``'s.
 
 ``rehome_tree`` is the restore half of a lane migration or an elastic
 shrink: a :class:`~repro_torch.core.fleet.LaneSnapshot` holds its student
@@ -24,18 +29,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import (  # noqa: F401 (re-exported)
+    PartitionSpec,
+    axis_names,
+    is_device_mesh,
+    is_dtensor,
+    mesh_size,
+    placements,
+)
 from repro_torch.tree import tree_map
-
-
-class PartitionSpec(tuple):
-    """Per leaf axis, the mesh axis name (or tuple of names) it is split
-    over, or ``None`` (the JAX ``PartitionSpec``)."""
-
-    def __new__(cls, *axes):
-        return super().__new__(cls, axes)
-
-    def __repr__(self) -> str:
-        return f"PartitionSpec{tuple(self)!r}"
 
 
 def _named_axes(spec: PartitionSpec):
@@ -47,28 +49,52 @@ def _named_axes(spec: PartitionSpec):
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """Where a leaf goes: ``mesh`` (a ``RowMesh``) and ``spec``."""
+    """Where a leaf goes: ``mesh`` (a ``DeviceMesh`` or a ``RowMesh``)
+    and ``spec``."""
 
     mesh: object
     spec: PartitionSpec
 
     def __post_init__(self):
-        unknown = [a for a in _named_axes(self.spec)
-                   if a not in self.mesh.axis_names]
+        names = axis_names(self.mesh)
+        unknown = [a for a in _named_axes(self.spec) if a not in names]
         if unknown:
             raise ValueError(f"{self.spec} names axes {unknown} that the "
-                             f"mesh {self.mesh.axis_names} does not have")
+                             f"mesh {names} does not have")
+
+    @property
+    def placements(self) -> list:
+        """The spec's DTensor placements over a ``DeviceMesh``."""
+        return placements(self.spec, self.mesh)
 
     @property
     def device(self) -> torch.device:
-        """The one device every position of the mesh holds."""
+        """The device a leaf lands on: a ``DeviceMesh``'s device type (the
+        current card for ``cuda``), or the one device every position of a
+        ``RowMesh`` holds."""
+        if is_device_mesh(self.mesh):
+            return torch.device(self.mesh.device_type)
         devices = set(self.mesh.devices.flat)
         if len(devices) != 1:
             raise NotImplementedError(
-                f"placing a leaf over {len(devices)} distinct devices "
-                f"({self.spec}) needs DTensor placements, which the port "
-                "does not have: ROADMAP Queue 1, item 10c")
+                f"a RowMesh over {len(devices)} distinct devices ({self.spec})"
+                ": lay the leaf out over a torch DeviceMesh instead "
+                "(launch/mesh.py::make_host_mesh), as a NamedSharding "
+                "of that mesh")
         return next(iter(devices))
+
+    def place(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` laid out by this sharding: a DTensor is redistributed to
+        the placements, a plain tensor distributed over a ``DeviceMesh``
+        of more than one rank, else moved to :attr:`device`."""
+        if is_dtensor(x):
+            return x.redistribute(self.mesh, self.placements)
+        x = x.to(self.device)
+        if is_device_mesh(self.mesh) and mesh_size(self.mesh) > 1:
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(x, self.mesh, self.placements)
+        return x
 
 
 def shardings_for(mesh, spec_tree):
@@ -84,15 +110,19 @@ def _as_tensor(x, dev: torch.device):
 
 
 def reshard_tree(tree, new_shardings):
-    """Every leaf of ``tree`` (numpy arrays or tensors; ``None`` stays) as
-    a tensor on its sharding's device; numpy leaves are copied."""
+    """Every leaf of ``tree`` (numpy arrays or tensors; ``None`` stays)
+    laid out by its sharding (:meth:`NamedSharding.place`); numpy leaves
+    are copied."""
     def leaf(x, sharding):
         if x is None:
             return None
-        if len(sharding.spec) > np.ndim(x):
+        ndim = x.dim() if isinstance(x, torch.Tensor) else np.ndim(x)
+        if len(sharding.spec) > ndim:
             raise ValueError(f"{sharding.spec} has more axes than a leaf of "
                              f"shape {tuple(np.shape(x))}")
-        return _as_tensor(x, sharding.device)
+        if not isinstance(x, torch.Tensor):
+            x = _as_tensor(x, sharding.device)
+        return sharding.place(x)
 
     return tree_map(leaf, tree, new_shardings)
 

@@ -48,8 +48,8 @@ def schedule(step, cfg: OptimizerConfig) -> torch.Tensor:
 
 
 def init_opt_state(params, cfg: OptimizerConfig):
-    def f32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def f32(p):  # laid out as p (a DTensor's moments are DTensors)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     if cfg.name == "sgd":
         return {"mu": tree_map(f32, params)}

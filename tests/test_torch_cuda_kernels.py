@@ -1,7 +1,9 @@
 """The hand-written kernels on the card, beyond ``chip_smoke.py``'s shapes:
 every head dim and dtype of the attention kernel over its options (ragged
 edges, windows with and without causality, query offsets, kv splits with
-fully masked rows, strided and misaligned inputs), and the MX GEMMs where
+fully masked rows, strided and misaligned inputs; its row log-sum-exp,
+alone and merging the shards of a sequence-sharded decode), and the MX
+GEMMs where
 their contractions split, at every tile width (N from 8 to 1000, ragged M,
 K from one MX block to 4608), at the stem's misaligned K = 147 read
 contiguous and through transposed views, and with products in the fp32
@@ -111,6 +113,61 @@ def test_attention_matches_plain(card, case, dtype, d):
     torch.cuda.synchronize()
     assert _assert_attention(out, q, k, v, opts).splits == pieces
     assert torch.equal(out, again)
+
+
+LSE_TOL = 2e-5  # chip_smoke.LSE_TOL
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ATTENTION_CASES))
+def test_attention_lse_matches_plain(card, case, dtype, d):
+    """``return_lse``: the rows' log-sum-exp (single piece and through the
+    kv split's combine) within LSE_TOL·(1 + |plain|) of the plain
+    version's, -inf exactly where a row has no key, and the output
+    bitwise the output without lse."""
+    shape, opts, _ = ATTENTION_CASES[case]
+    q, k, v = _qkv(shape, d, dtype, card)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **opts)
+    _, want = ref.flash_attention_ref(q, k, v, return_lse=True, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, **opts))
+    assert lse.shape == (shape[0], shape[1], shape[3])
+    assert lse.dtype == torch.float32
+    dead = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all())
+    err = (lse[~dead] - want[~dead]).abs()
+    assert bool((err <= LSE_TOL * (1 + want[~dead].abs())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("t", [300, 1100, 40])
+def test_sharded_decode_merge_matches_unsharded(card, dtype, t):
+    """A ring of 1024 slots in 4 shards: each shard's kernel (out, lse),
+    merged by ``merge_decode_shards``, against the unsharded decode; at t
+    = 40 three shards hold no valid slot."""
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn((2, 1, 8, 64), generator=gen, device=card).to(dtype)
+    k, v = (torch.randn((2, 4, 1024, 64), generator=gen,
+                        device=card).to(dtype) for _ in range(2))
+    opts = dict(logit_softcap=30.0, scale=0.125)
+    n_all = min(t + 1, 1024)
+    parts = [attn.decode_shard(q, k[:, :, r * 256:(r + 1) * 256],
+                               v[:, :, r * 256:(r + 1) * 256],
+                               max(0, min(n_all - r * 256, 256)), **opts)
+             for r in range(4)]
+    merged = attn.merge_decode_shards(
+        torch.stack([o for o, _ in parts]), torch.stack([s for _, s in parts]),
+        lambda x: x.amax(0), lambda x: x.sum(0))
+    whole = attn.flash_decode(q, k, v, t, **opts)
+    tol = ATTENTION_TOL[dtype]
+    err = (merged.float() - whole.float()).abs()
+    assert bool((err <= tol + tol * whole.float().abs()).all()), float(
+        err.max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

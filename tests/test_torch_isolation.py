@@ -17,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "attention_mutants.py",
     ROOT / "gemm_ablation.py", ROOT / "pair_per_gemm.py",
+    ROOT / "mesh_overhead.py",
     ROOT / "examples" / "continuous_learning_drive_torch.py",
     ROOT / "examples" / "fleet_drive_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
