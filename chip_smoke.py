@@ -218,6 +218,22 @@ exits non-zero without printing a result:
    unsharded call's. A multi-rank world needs several cards (NCCL refuses
    two ranks on one; gloo has no CUDA ``all_gather``): collectives across
    cards are not run here.
+16. ranks  — the MoE, Mamba and xLSTM layers across ranks on one card
+   (``rank_phase``): the serve drivers of reduced mixtral-8x7b,
+   jamba-v0.1-52b and xlstm-125m (fp32, 4 x 32 prompt, 16 tokens) on
+   ``make_host_mesh(1)``, tokens and decode logits bit for bit their runs
+   with no mesh, every attention launch "cuda"; then each layer's per-rank
+   body for R virtual model ranks, run in turn (``distributed.run_serial``:
+   each round of the ranks' terms summed as the all-reduce would), at
+   published widths in bf16 (``RANK_CASES``): mixtral-8x7b's MoE FFN at 1
+   x 4096 over 2, 4 and 16 ranks (16: expert fission, 16 virtual experts
+   of d_ff 7168), jamba-v0.1-52b's over 4, its Mamba layer at 1 x 4096
+   over 2 and 4 (prefill, then ``RANK_DECODE`` decode steps against the
+   rank-split caches), xlstm-125m's mLSTM and sLSTM at 4 x 1024 over 2;
+   the merged output within ``RANK_RMS_SHARE`` of the unsharded layer's,
+   every rank's routing equal to it, the replicated recurrent state equal
+   on every rank bit for bit; times of the unsharded layer and of the R
+   bodies in turn.
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -3646,6 +3662,334 @@ def sharding_phase(runs: dict) -> dict:
     return out
 
 
+# Phase 16: the MoE, Mamba and xLSTM layers' per-rank bodies, R virtual
+# model ranks run one after another on the one card and their terms
+# summed as the all-reduce would (``distributed.run_serial``), held to the
+# unsharded layer: (arch, layer, ranks R, batch, tokens) at published
+# widths in bf16. R = 16 on mixtral's 8 experts is the production mesh's
+# expert fission (r = 2: 16 virtual experts of d_ff 7168).
+RANK_CASES = (("mixtral-8x7b", "moe", (2, 4, 16), 1, 4096),
+              ("jamba-v0.1-52b", "moe", (4,), 1, 4096),
+              ("jamba-v0.1-52b", "mamba", (2, 4), 1, 4096),
+              ("xlstm-125m", "mlstm", (2,), 4, 1024),
+              ("xlstm-125m", "slstm", (2,), 4, 1024))
+RANK_DECODE = 32  # decode steps against the rank-split caches
+RANK_INIT = 16  # the CUDA generator's seed for phase 16's weights
+# The merged ranks against the unsharded layer, both in bf16: RMS(merged -
+# whole) <= RANK_RMS_SHARE x RMS(whole), phase 15's limit for its merged
+# decode. The ranks sum their terms of each contraction over d_inner (or
+# over the experts) in another order and round each term to bf16 before
+# the sum, ~1 rounding (2^-9) of the output's scale; the recurrences carry
+# it through 32 decode steps.
+RANK_RMS_SHARE = 2.0 ** -6
+# The serve drivers' runs of the three archs on make_host_mesh(1) and with
+# no mesh: examples/serve_lm_torch.py's setup (phase 14), reduced, fp32.
+RANK_DRIVER = ["--reduced", "--batch", "4", "--prompt-len", "32", "--gen",
+               "16"]
+
+
+def rank_share(merged, whole) -> dict:
+    """{max_abs_err, rms_share}: ``merged`` against ``whole``."""
+    err = (merged.float() - whole.float())
+    return {"max_abs_err": float(err.abs().max()),
+            "rms_share": float(err.square().mean().sqrt()
+                               / whole.float().square().mean().sqrt()
+                               .clamp_min(1e-30))}
+
+
+def rank_within(label: str, merged, whole) -> dict:
+    """Raise unless ``merged`` has ``whole``'s shape and dtype and lies
+    within RANK_RMS_SHARE of it; returns ``rank_share``."""
+    got = rank_share(merged, whole)
+    if (merged.shape != whole.shape or merged.dtype != whole.dtype
+            or not got["rms_share"] <= RANK_RMS_SHARE):
+        raise AssertionError(
+            f"mixer ranks: {label}: merged ranks vs the unsharded layer: "
+            f"{tuple(merged.shape)} {merged.dtype} against "
+            f"{tuple(whole.shape)} {whole.dtype}, RMS share "
+            f"{got['rms_share']:.3g} (limit {RANK_RMS_SHARE:.3g}), max abs "
+            f"err {got['max_abs_err']:.3g}")
+    return got
+
+
+def rank_part(tree: dict, defs: dict, ranks: int, rank: int) -> dict:
+    """Rank ``rank``'s part of a layer's ``tree`` (params or a cache) laid
+    out by ``defs``: the first dim that ``distributed.MODEL_SPLIT`` names
+    cut into ``ranks`` pieces as DTensor cuts it (a view, so a cache
+    written by the rank fills the whole), every other leaf a copy of its
+    own (a replicated cache is each rank's own)."""
+    from repro_torch.distributed import MODEL_SPLIT, chunk_range
+
+    out = {}
+    for key, leaf in tree.items():
+        dims = [d for d, n in enumerate(defs[key].logical)
+                if n in MODEL_SPLIT]
+        out[key] = (leaf.narrow(dims[0], *chunk_range(
+            leaf.shape[dims[0]], ranks, rank)) if dims else leaf.clone())
+    return out
+
+
+def moe_ranks(arch: str, ranks_list, batch: int, tokens: int,
+              dev="cuda") -> list:
+    """Phase 16, one MoE FFN at full width in bf16: ``moe_rank`` on R
+    virtual model ranks, each running its virtual experts (R above the
+    expert count splits them: ``convert.experts_to_virtual``), their
+    terms of y summed in fp32 and rounded once, and their router
+    statistics summed into ``aux``; held to ``moe_forward`` within
+    RANK_RMS_SHARE, every rank's routing (expert indices and keep mask)
+    equal to the unsharded layer's. Times the unsharded layer and the R
+    bodies' serial run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import experts_to_virtual
+    from repro_torch.distributed import init_params, run_serial
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_arch(arch), dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(RANK_INIT)
+    params = init_params(moe.moe_defs(cfg), gen)
+    x = torch.randn((batch, tokens, cfg.d_model), generator=gen,
+                    device=dev).bfloat16()
+    rows = []
+    with torch.no_grad():
+        want_routes = []
+        with route_record(want_routes):
+            y0, aux0 = moe.moe_forward(params, x, cfg)
+        whole_ms = time_ms(lambda: moe.moe_forward(params, x, cfg), iters=3)
+        for ranks in ranks_list:
+            r = max(1, ranks // cfg.num_experts)
+            virtual = experts_to_virtual(params, r)
+            per = cfg.num_experts * r // ranks
+
+            def bodies():
+                return [moe.moe_rank(
+                    x, virtual["router"],
+                    *(virtual[k][m * per:(m + 1) * per]
+                      for k in ("w_gate", "w_up", "w_down")), cfg,
+                    first=m * per, lead=m == 0) for m in range(ranks)]
+
+            routes = []
+            with route_record(routes):
+                outs = run_serial(bodies())
+            y = torch.stack([o[0] for o in outs]).sum(0).to(x.dtype)
+            aux = moe.balance_loss(sum(o[2] for o in outs), cfg)
+            torch.cuda.synchronize()
+            for m, got in enumerate(routes):
+                for i, what in ((0, "expert indices"), (2, "keep mask")):
+                    if not torch.equal(got[i], want_routes[0][i]):
+                        raise AssertionError(
+                            f"mixer ranks: {arch} MoE, rank {m} of {ranks}:"
+                            f" its {what} differ from the unsharded "
+                            "layer's")
+            row = {"arch": arch, "layer": "moe", "ranks": ranks,
+                   "virtual_per_expert": r, "experts_per_rank": per,
+                   "d_ff_per_expert": cfg.d_ff // r,
+                   **rank_within(f"{arch} MoE over {ranks} ranks", y, y0),
+                   "aux_err": abs(float(aux) - float(aux0)),
+                   "routes_equal": len(routes),
+                   "whole_ms": whole_ms,
+                   "ranks_ms": time_ms(lambda: run_serial(bodies()),
+                                       iters=3)}
+            if not row["aux_err"] <= 1e-5 * abs(float(aux0)) + 1e-7:
+                raise AssertionError(f"mixer ranks: {arch} MoE over {ranks} "
+                                     f"ranks: aux {float(aux)} against "
+                                     f"{float(aux0)}")
+            rows.append(row)
+            log("ranks", "{arch} MoE FFN {b} x {t} bf16 over {ranks} ranks "
+                "({experts_per_rank} of {ev} virtual experts a rank, r = "
+                "{virtual_per_expert}, d_ff {d_ff_per_expert}): merged vs "
+                "unsharded RMS share {rms_share:.3g} (limit {lim:.3g}), max "
+                "abs err {max_abs_err:.3g}; routing of all {routes_equal} "
+                "rank calls equal to the unsharded layer's; aux err "
+                "{aux_err:.3g}; {ranks} bodies in turn {ranks_ms:.3f} ms "
+                "against {whole_ms:.3f} ms unsharded".format(
+                    b=batch, t=tokens, lim=RANK_RMS_SHARE,
+                    ev=cfg.num_experts * r, **row))
+    return rows
+
+
+def mixer_ranks(arch: str, layer: str, ranks_list, batch: int,
+                tokens: int, dev="cuda") -> list:
+    """Phase 16, one Mamba / mLSTM / sLSTM layer at full width in bf16: a
+    prefill of ``tokens`` into a zero cache and RANK_DECODE decode steps,
+    unsharded (``*_forward``) and as R virtual ranks' bodies
+    (``*_rank``) run in turn (``run_serial``), each rank on its share of
+    the channels and of the cache (``rank_part``: views, so the ranks fill
+    one cache; a replicated leaf is each rank's own copy, equal across the
+    ranks bit for bit); every output and the final cache held within
+    RANK_RMS_SHARE of the unsharded layer's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import (chunk_range, init_params,
+                                         is_param_def, run_serial)
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.tree import tree_map
+
+    defs, fwd, body, cdefs, width = {
+        "mamba": (ssm.mamba_defs, ssm.mamba_forward, ssm.mamba_rank,
+                  ssm.mamba_cache_defs, None),
+        "mlstm": (xlstm.mlstm_defs, xlstm.mlstm_forward, xlstm.mlstm_rank,
+                  xlstm.mlstm_cache_defs, "mlstm"),
+        "slstm": (xlstm.slstm_defs, xlstm.slstm_forward, xlstm.slstm_rank,
+                  xlstm.slstm_cache_defs, "slstm")}[layer]
+    cfg = dataclasses.replace(get_arch(arch), dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(RANK_INIT)
+    ldefs = defs(cfg)
+    params = init_params(ldefs, gen)
+    x = torch.randn((batch, tokens + RANK_DECODE, cfg.d_model),
+                    generator=gen, device=dev).bfloat16()
+    cache_defs = cdefs(cfg, batch)
+
+    def zero_cache():
+        return tree_map(lambda d: d.initialize(None, dev), cache_defs,
+                        is_leaf=is_param_def)
+
+    def run(step):
+        outs = [step(x[:, :tokens], "prefill")]
+        for t in range(tokens, tokens + RANK_DECODE):
+            outs.append(step(x[:, t:t + 1], "decode"))
+        return outs
+
+    rows = []
+    with torch.no_grad():
+        cache0 = zero_cache()
+        t0 = time.perf_counter()
+        want = run(lambda xx, mode: fwd(params, xx, cfg, mode=mode,
+                                        cache=cache0)[0])
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        for ranks in ranks_list:
+            cache = zero_cache()
+            caches = [rank_part(cache, cache_defs, ranks, m)
+                      for m in range(ranks)]
+            parts = [rank_part(params, ldefs, ranks, m)
+                     for m in range(ranks)]
+            kw = [{} for _ in range(ranks)]
+            if width:  # the channel offset of each rank's share
+                n = (int(cfg.mlstm_proj_factor * cfg.d_model)
+                     if width == "mlstm" else cfg.d_model)
+                kw = [{"lo": chunk_range(n, ranks, m)[0]}
+                      for m in range(ranks)]
+
+            def step(xx, mode):
+                outs = run_serial([body(parts[m], xx, cfg, mode=mode,
+                                        cache=caches[m], **kw[m])
+                                   for m in range(ranks)])
+                return torch.stack([o[0] for o in outs]).sum(0).to(x.dtype)
+
+            t0 = time.perf_counter()
+            got = run(step)
+            torch.cuda.synchronize()
+            ranks_s = time.perf_counter() - t0
+            pre = rank_within(f"{arch} {layer} prefill over {ranks} ranks",
+                              got[0], want[0])
+            dec = rank_within(f"{arch} {layer} {RANK_DECODE} decode steps "
+                              f"over {ranks} ranks", torch.cat(got[1:], 1),
+                              torch.cat(want[1:], 1))
+            state = {}
+            for key, leaf in cache.items():
+                if key in caches[0] and caches[0][key].shape == leaf.shape:
+                    # replicated: each rank's own copy, all equal
+                    for m in range(1, ranks):
+                        if not same_bits(caches[m][key], caches[0][key]):
+                            raise AssertionError(
+                                f"mixer ranks: {arch} {layer}: rank {m}'s "
+                                f"replicated {key} differs from rank 0's")
+                    leaf = caches[0][key]
+                state[key] = rank_within(
+                    f"{arch} {layer} cache {key} over {ranks} ranks", leaf,
+                    cache0[key])["rms_share"]
+            row = {"arch": arch, "layer": layer, "ranks": ranks,
+                   "prefill": pre, "decode": dec, "cache_rms_share": state,
+                   "whole_s": whole_s, "ranks_s": ranks_s}
+            rows.append(row)
+            log("ranks", f"{arch} {layer} {batch} x {tokens} bf16 over "
+                f"{ranks} ranks: prefill RMS share {pre['rms_share']:.3g} "
+                f"(max abs err {pre['max_abs_err']:.3g}), {RANK_DECODE} "
+                f"decode steps against the rank-split cache "
+                f"{dec['rms_share']:.3g} ({dec['max_abs_err']:.3g}), final "
+                f"cache {', '.join(f'{k} {v:.3g}' for k, v in state.items())}"
+                f" (limit {RANK_RMS_SHARE:.3g}); prefill and decode "
+                f"{ranks_s:.2f} s in turn against {whole_s:.2f} s unsharded")
+    return rows
+
+
+def mixer_drivers_on_mesh() -> dict:
+    """Phase 16: the serve driver of each MoE / Mamba / xLSTM arch
+    (RANK_DRIVER's setup) on ``make_host_mesh(1)`` and with no mesh:
+    tokens and decode logits bit for bit, every attention launch "cuda"
+    and as many on the mesh as off it."""
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+
+    out = {}
+    for arch in ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m"):
+        runs = {}
+        for on_mesh in (False, True):
+            mxq.reset_launch_counts()
+            ops.reset_kernel_stats()
+            t0 = time.perf_counter()
+            res = serve_lib.serve(["--arch", arch] + RANK_DRIVER,
+                                  on_mesh=on_mesh)
+            wall = time.perf_counter() - t0
+            launches = mxq.launch_counts()["flash_attention"]
+            stats = ops.kernel_stats().get("flash_attention")
+            if launches and stats != {"cuda": launches}:
+                raise AssertionError(f"mixer ranks: {arch} serve driver: "
+                                     f"{launches} attention launches, "
+                                     f"kernel_stats {stats}")
+            runs[on_mesh] = {"tokens": res["tokens"],
+                             "logits": res["logits"].cpu(),
+                             "launches": launches, "wall_s": wall}
+        same_runs(f"{arch} serve", runs[False], runs[True],
+                  ("tokens", "logits"))
+        if runs[True]["launches"] != runs[False]["launches"]:
+            raise AssertionError(f"mixer ranks: {arch} serve driver: "
+                                 f"{runs[True]['launches']} attention "
+                                 "launches on the mesh, "
+                                 f"{runs[False]['launches']} off it")
+        out[arch] = {"launches": runs[True]["launches"],
+                     "wall_s": [runs[False]["wall_s"], runs[True]["wall_s"]]}
+        log("ranks", f"{arch} serve driver ({' '.join(RANK_DRIVER)}) on "
+            f"make_host_mesh(1): tokens and decode logits equal the run "
+            f"with no mesh bit for bit; {runs[True]['launches']} attention "
+            f"launches each, all cuda; {runs[False]['wall_s']:.2f} s off / "
+            f"{runs[True]['wall_s']:.2f} s on the mesh")
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_phase(dev="cuda") -> dict:
+    """Phase 16: the MoE, Mamba and xLSTM layers across ranks on one card
+    (module docstring): ``mixer_drivers_on_mesh``, then ``moe_ranks`` and
+    ``mixer_ranks`` over RANK_CASES. Returns the readings and the
+    attention launches."""
+    import torch
+
+    out = {"drivers": mixer_drivers_on_mesh(), "layers": []}
+    for arch, layer, ranks, batch, tokens in RANK_CASES:
+        t0 = time.perf_counter()
+        if layer == "moe":
+            rows = moe_ranks(arch, ranks, batch, tokens, dev)
+        else:
+            rows = mixer_ranks(arch, layer, ranks, batch, tokens, dev)
+        out["layers"] += rows
+        log("ranks", f"{arch} {layer}: {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+    out["launches"] = {arch: row["launches"]
+                       for arch, row in out["drivers"].items()}
+    return out
+
+
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
 GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
     "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
@@ -4259,6 +4603,13 @@ def main() -> None:
     sharding = sharding_phase(lm.pop("driver_runs"))
     log("sharding", f"phase done in {time.perf_counter() - t0:.2f} s")
 
+    # ------------------------------------------------------- 16 mixer ranks
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = rank_phase()
+    log("ranks", f"phase done in {time.perf_counter() - t0:.2f} s")
+    print("[ranks] summary " + json.dumps(ranks, default=float), flush=True)
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -4312,6 +4663,7 @@ def main() -> None:
                for arch, *_ in MIXER_MODELS},
             "serve_example": mixers["serve_example"]["launches"]},
         "launches_sharding": sharding["launches"],
+        "launches_mixer_ranks": ranks["launches"],
         "lse_max_abs_err": max(row["lse_max_abs_err"] for row in
                                attention_rows
                                if row["lse_max_abs_err"] is not None),

@@ -21,6 +21,11 @@ An MX representation crosses the same way (``mx_from_numpy`` /
 becomes the port's, bit for bit — int8 mantissa, int8 exponent, uint8
 micro-exponent bits and the precision — so both packages can serve the
 same resident weight.
+
+A MoE layer's experts cross into the port's layout for expert fission with
+``experts_to_virtual``: the reference's (or an init's) r = 1 experts split
+into r virtual experts each, a d_ff slice apiece, as ``models/moe.py``
+lays them out when the expert axis does not divide the expert count.
 """
 from __future__ import annotations
 
@@ -106,3 +111,37 @@ def mx_to_numpy(q):
         return MXLeaf(mx_to_numpy(q.q), q.shape, dtype, q.k)
     return MXTensor(*(getattr(q, name).detach().cpu().numpy()
                       for name, _ in _MX_FIELDS), precision=q.precision)
+
+
+_EXPERT_KEYS = ("router", "w_gate", "w_up", "w_down")
+
+
+def _split_experts(w, r: int, ff_last: bool):
+    """[..., e, d, f] (``ff_last``) -> [..., e r, d, f / r], or [..., e,
+    f, d] -> [..., e r, f / r, d]: expert j's slice i of d_ff becomes
+    virtual expert j r + i. Works on numpy arrays and tensors alike."""
+    *lead, e, a, b = w.shape
+    if ff_last:
+        w = w.reshape(*lead, e, a, r, b // r).swapaxes(-3, -2)
+        return w.reshape(*lead, e * r, a, b // r)
+    return w.reshape(*lead, e * r, a // r, b)
+
+
+def experts_to_virtual(tree, r: int):
+    """``tree`` with every MoE layer's experts (a dict holding ``router``,
+    ``w_gate``, ``w_up`` and ``w_down``, stacked over layers or not, numpy
+    or tensors) split into r virtual experts each: ``w_gate`` / ``w_up``
+    along d_ff, ``w_down`` along its d_ff dim. SwiGLU is elementwise in
+    d_ff, so the split layer computes the same function, its down
+    projections summing over the virtual experts (``moe_forward``).
+    r = 1 returns ``tree`` itself."""
+    if r == 1:
+        return tree
+    if isinstance(tree, dict):
+        if all(k in tree for k in _EXPERT_KEYS):
+            return {k: v if k == "router" else _split_experts(
+                v, r, ff_last=k != "w_down") for k, v in tree.items()}
+        return {k: experts_to_virtual(v, r) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(experts_to_virtual(v, r) for v in tree)
+    return tree

@@ -28,6 +28,8 @@ differ, so the tests carry weights across (``repro_torch.convert``).
 from __future__ import annotations
 
 import contextlib
+import functools
+import inspect
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -205,10 +207,19 @@ def full_tensor(x: torch.Tensor) -> torch.Tensor:
     return x.full_tensor() if is_dtensor(x) else x
 
 
+def chunk_range(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """(offset, length) of piece ``index`` of a dim of ``n`` cut into
+    ``parts`` as ``torch.chunk`` cuts it, as DTensor lays a ``Shard``
+    out."""
+    chunk = -(-n // parts)
+    start = min(index * chunk, n)
+    return start, min(start + chunk, n) - start
+
+
 def local_range(x, dim: int) -> Tuple[int, int]:
     """(offset, length) of this rank's part of DTensor ``x`` along
     ``dim``: the mesh dims that shard it split it in mesh order, each in
-    ``torch.chunk``'s pieces, as DTensor lays a ``Shard`` out."""
+    ``chunk_range``'s pieces."""
     from torch.distributed.tensor import Shard
 
     mesh = x.device_mesh
@@ -216,11 +227,8 @@ def local_range(x, dim: int) -> Tuple[int, int]:
     offset, size = 0, x.shape[dim]
     for i, pl in enumerate(x.placements):
         if isinstance(pl, Shard) and pl.dim % x.ndim == dim % x.ndim:
-            n = mesh.size(i)
-            chunk = -(-size // n)
-            start = min(coord[i] * chunk, size)
-            stop = min(start + chunk, size)
-            offset, size = offset + start, stop - start
+            start, size = chunk_range(size, mesh.size(i), coord[i])
+            offset += start
     return offset, size
 
 
@@ -251,6 +259,209 @@ def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         return x
     return x.redistribute(x.device_mesh,
                           placements(rules.spec_for(logical_axes), mesh))
+
+
+# ----------------------------------------------------------- per-rank bodies
+# A layer that DTensor's own op strategies cannot hold across ranks (the
+# MoE's index dispatch, the Mamba / xLSTM chunk loops) runs as a per-rank
+# *body*: a plain function of this rank's local tensors, which the layer
+# calls through :func:`per_rank`. The body holds its share of every weight
+# dim named below ("model"'s part of the channels or experts) and the whole
+# of every other dim (gathered over the data axes: FSDP); activations come
+# with their batch split as the data axes split it and whole over "model".
+# A body that needs a sum over "model" before it can go on is a generator:
+# it yields its term and resumes with the sum. :func:`run_serial` runs R
+# such bodies one after another on one device, as R ranks of one "model"
+# axis would run them, which is how a body is checked on one card.
+MODEL_SPLIT = ("ff", "ff2", "expert")  # dims a body holds a share of
+
+
+def _dim_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names)
+
+
+def token_placements(x) -> List:
+    """Where a body takes activations x [B, ...]: the batch split over
+    each mesh dim other than "model" that x splits it over already, whole
+    over "model" and elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if name != "model" and isinstance(p, Shard)
+            and p.dim == 0 else Replicate()
+            for name, p in zip(_dim_names(x.device_mesh), x.placements)]
+
+
+def rank_placements(mesh, logical: Sequence[Optional[str]]) -> List:
+    """Where a body takes a parameter or cache of these logical axes: the
+    first dim named in ``MODEL_SPLIT`` split over "model", the rest whole
+    (gathered over every other mesh dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = [d for d, name in enumerate(logical) if name in MODEL_SPLIT]
+    return [Shard(dims[0]) if name == "model" and dims else Replicate()
+            for name in _dim_names(mesh)]
+
+
+def split_dims(tokens: Sequence, mesh) -> Tuple[int, ...]:
+    """The mesh dims over which a body's work is split, given its tokens'
+    placements (``token_placements``): "model"'s, and every dim that
+    splits the batch."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(i for i, (name, p) in enumerate(zip(_dim_names(mesh),
+                                                      tokens))
+                 if name == "model" or isinstance(p, Shard))
+
+
+def take_local(x: torch.Tensor, placements: Sequence,
+               split: Sequence[int]) -> torch.Tensor:
+    """DTensor ``x`` laid out by ``placements`` and taken local. Its
+    gradient comes back split as ``placements`` split it, and ``Partial``
+    on each mesh dim of ``split`` (``split_dims``) that replicates it:
+    there every rank adds the gradient of its own part of the work."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if tuple(x.placements) != tuple(placements):
+        x = x.redistribute(x.device_mesh, placements)
+    grads = [Partial() if i in split and isinstance(p, Replicate) else p
+             for i, p in enumerate(placements)]
+    return x.to_local(grad_placements=grads)
+
+
+def give_back(local: torch.Tensor, mesh, placements: Sequence):
+    """A DTensor of this rank's ``local`` part (made contiguous) under
+    ``placements``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local.contiguous(), mesh, placements)
+
+
+def partial_over_model(tokens: Sequence, mesh) -> List:
+    """``tokens``' placements with "model" a ``Partial`` sum: a body's
+    term of a sum over the model axis."""
+    from torch.distributed.tensor import Partial
+
+    return [Partial() if name == "model" else p
+            for name, p in zip(_dim_names(mesh), tokens)]
+
+
+def _sum_over_model(part: torch.Tensor, mesh, tokens) -> torch.Tensor:
+    """Every model rank's ``part`` summed (an all-reduce through DTensor,
+    so autograd crosses it), local again; its gradient comes back a
+    ``Partial`` sum, each rank's use of the sum being its own."""
+    if mesh.size(_dim_names(mesh).index("model")) == 1:
+        return part
+    pls = partial_over_model(tokens, mesh)
+    whole = give_back(part, mesh, pls).redistribute(mesh, list(tokens))
+    return whole.to_local(grad_placements=pls)
+
+
+def drive(result, reduce):
+    """A body's result: a generator runs to its end, each term it yields
+    answered with ``reduce(term)``; anything else is the result."""
+    if not inspect.isgenerator(result):
+        return result
+    answer = None
+    try:
+        while True:
+            answer = reduce(result.send(answer))
+    except StopIteration as stop:
+        return stop.value
+
+
+def per_rank(body, mesh, args: Sequence, outs: Sequence, tokens: Sequence):
+    """Run a per-rank ``body`` (section comment) on this rank's parts.
+    ``args`` are (value, placements) pairs: a DTensor is taken local by
+    ``take_local`` (its gradient ``Partial`` over the dims ``split_dims``
+    names for ``tokens``), a value with placements None is passed as it
+    is. ``body(*locals)`` returns a tuple, or is a generator whose terms
+    are summed over "model" (``_sum_over_model``). ``outs`` gives, for
+    each output, the placements of the DTensor it becomes (``Partial`` on
+    "model" where it is this rank's term of a sum), or None to return it
+    as it is (a cache the body wrote, a count)."""
+    split = split_dims(tokens, mesh)
+    local = [v if pls is None else take_local(v, pls, split)
+             for v, pls in args]
+    result = drive(body(*local), lambda t: _sum_over_model(t, mesh, tokens))
+    return tuple(r if pls is None else give_back(r, mesh, pls)
+                 for r, pls in zip(result, outs))
+
+
+def term(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A rank's term of a contraction over its share of a dim, ``a @ w``
+    in fp32: the products of bf16 operands are exact there, so the sum of
+    the ranks' terms rounds once to the activations' dtype, as the
+    unsharded GEMM (fp32 accumulation, one rounding) does."""
+    return a.float() @ w.float()
+
+
+def model_range(mesh, n: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's share of a dim of ``n`` split over
+    "model" (``chunk_range``)."""
+    i = _dim_names(mesh).index("model")
+    return chunk_range(n, mesh.size(i), mesh.get_coordinate()[i])
+
+
+def run_mixer(body, params, defs, x: torch.Tensor, cache=None,
+              cache_defs=None) -> torch.Tensor:
+    """A mixer layer across ranks: ``body(params, x, cache=...)`` (a
+    per-rank body whose one output is its term of y [B, S, D], fp32) on
+    this rank's
+    parts: ``params`` laid out as ``rank_placements`` of ``defs``' logical
+    axes, x as ``token_placements``, each cache leaf taken local where it
+    lies (its model dim as ``rank_placements`` of ``cache_defs`` says, its
+    batch as the tokens'; otherwise this raises, since a cache is written
+    in place). Returns y summed over "model", laid out as the tokens, in
+    x's dtype."""
+    mesh = x.device_mesh
+    tokens = token_placements(x)
+    keys = list(params)
+    args = [(params[k], rank_placements(mesh, defs[k].logical))
+            for k in keys] + [(x, tokens)]
+    local = None
+    if cache is not None:
+        local = {}
+        for k, leaf in cache.items():
+            want = [p if name == "model" else t for name, p, t in zip(
+                _dim_names(mesh), rank_placements(
+                    mesh, cache_defs[k].logical), tokens)]
+            if tuple(leaf.placements) != tuple(want):
+                raise ValueError(f"cache {k!r} is laid out as "
+                                 f"{leaf.placements}, its layer runs on "
+                                 f"{want}")
+            local[k] = leaf.to_local()
+
+    def call(*vals):
+        return body(dict(zip(keys, vals[:-1])), vals[-1], cache=local)
+
+    (y,) = per_rank(call, mesh, args, [partial_over_model(tokens, mesh)],
+                    tokens)
+    return y.redistribute(mesh, tokens).to(x.dtype)
+
+
+def run_serial(results: Sequence):
+    """R per-rank bodies' ``results`` (generators resume; anything else is
+    a finished result) run one after another on one device, as R ranks of
+    one model axis: each round of terms is summed in rank order and sent
+    back to every body. Returns each rank's result, in rank order."""
+    done = list(results)
+    live = {i: r for i, r in enumerate(done) if inspect.isgenerator(r)}
+    answer = None
+    while live:
+        terms, ranks = {}, len(live)
+        for i, gen in list(live.items()):
+            try:
+                terms[i] = gen.send(answer)
+            except StopIteration as stop:
+                done[i] = stop.value
+                del live[i]
+        if terms and len(terms) != ranks:
+            raise RuntimeError("per-rank bodies yielded different numbers "
+                               "of terms")
+        if terms:
+            answer = functools.reduce(torch.add, [terms[i]
+                                                  for i in sorted(terms)])
+    return done
 
 
 def named_sharding(mesh, *logical_axes: Optional[str]):

@@ -12,8 +12,11 @@ rules: the params are placed by ``param_shardings`` and the prefill and
 decode are ``launch/steps.py``'s bundles. On one rank every tensor stays
 plain and the run is the single-card one bit for bit. Across ranks
 (``torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu
---model-parallel 2 ...``) the dense archs run sharded; the MoE, Mamba and
-xLSTM archs raise (ROADMAP item 10c-2).
+--model-parallel 2 ...``) every arch runs sharded: the dense layers
+through DTensor's ops and the sequence-sharded attention, the MoE experts
+over "model" (split into virtual experts where the axis does not divide
+their count: ``steps.place_params``), the Mamba and xLSTM mixers
+tensor-parallel through their per-rank bodies.
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ from repro_torch.launch.sharding import make_rules
 from repro_torch.launch.steps import (
     build_decode_bundle,
     build_prefill_bundle,
+    place_params,
 )
 from repro_torch.models.registry import make_lm_model
-from repro_torch.runtime.elastic import reshard_tree
 
 
 def parse_args(argv=None):
@@ -97,7 +100,8 @@ def _serve(args, dev: torch.device, mesh) -> dict:
     with torch.no_grad():
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         if mesh is not None:
-            params = reshard_tree(params, prefill.in_shardings[0])
+            params = place_params(arch, params, prefill.in_shardings[0],
+                                  mesh, rules)
         prompts = torch.from_numpy(prompts).to(dev)
         _sync(dev)
         t0 = time.perf_counter()

@@ -18,18 +18,19 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import MIXER_ATTENTION, ArchConfig, ShapeConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.convert import experts_to_virtual
 from repro_torch.distributed import (
     PartitionSpec,
     ShardingRules,
     is_device_mesh,
     mesh_axis_size,
-    mesh_size,
     param_shapes,
     param_specs,
     use_rules,
 )
 from repro_torch.device import DeviceLike
+from repro_torch.models.moe import expert_split_factor
 from repro_torch.models.transformer import LMModel
 from repro_torch.runtime.elastic import reshard_tree, shardings_for
 from repro_torch.training.grad import microbatched_grads
@@ -71,18 +72,16 @@ def _device(mesh, device: DeviceLike):
     return mesh.device_type if is_device_mesh(mesh) else "meta"
 
 
-def check_mixers(arch: ArchConfig, mesh) -> None:
-    """Raise where the arch has a mixer this port does not hold across
-    ranks: a MoE FFN (expert parallelism), Mamba or xLSTM."""
-    if mesh_size(mesh) <= 1 or not is_device_mesh(mesh):
-        return
-    mixers = {arch.mixer_for_layer(i) for i in range(arch.num_layers)}
-    moe = any(arch.is_moe_layer(i) for i in range(arch.num_layers))
-    if moe or mixers - {MIXER_ATTENTION}:
-        raise NotImplementedError(
-            f"{arch.name} across {mesh_size(mesh)} ranks: its MoE experts "
-            "(expert parallelism) and Mamba / xLSTM mixers are not held "
-            "across ranks yet: ROADMAP Queue 1, item 10c-2")
+def place_params(arch: ArchConfig, params, shardings, mesh,
+                 rules: ShardingRules):
+    """An init's ``params`` laid out by ``shardings`` (a ``NamedSharding``
+    tree) on ``mesh``: where the mesh's expert axis asks for expert
+    fission (``expert_split_factor``), each MoE layer's experts are first
+    split into their virtual experts (``convert.experts_to_virtual``), so
+    the model computes the same function as the unsplit init."""
+    with use_rules(rules, mesh):
+        r = expert_split_factor(arch) if arch.num_experts else 1
+    return reshard_tree(experts_to_virtual(params, r), shardings)
 
 
 # ------------------------------------------------------------------- inputs
@@ -144,7 +143,6 @@ def build_train_bundle(arch: ArchConfig, shape: ShapeConfig, mesh,
     ``zero2_gather`` (off by default, as in the reference) and more than
     one microbatch, the FSDP-sharded weights are gathered once a step and
     the gradients laid out sharded again (ZeRO-2)."""
-    check_mixers(arch, mesh)
     model = LMModel(arch, _device(mesh, device))
     opt_cfg = opt_cfg or OptimizerConfig(name="adamw", lr=3e-4)
     if num_microbatches is None:
@@ -205,7 +203,6 @@ def build_prefill_bundle(arch: ArchConfig, shape: ShapeConfig, mesh,
                          rules: ShardingRules,
                          device: DeviceLike = None) -> StepBundle:
     """``fn(params, batch) -> (last logits, caches of seq_len slots)``."""
-    check_mixers(arch, mesh)
     model = LMModel(arch, _device(mesh, device))
 
     def fn(params, batch):
@@ -234,7 +231,6 @@ def build_decode_bundle(arch: ArchConfig, shape: ShapeConfig, mesh,
                         device: DeviceLike = None) -> StepBundle:
     """``fn(params, caches, batch) -> (logits, caches)``: one token at
     ``batch["t"]`` (an int), the caches updated in place."""
-    check_mixers(arch, mesh)
     model = LMModel(arch, _device(mesh, device))
 
     def fn(params, caches, batch):

@@ -14,9 +14,10 @@ rules: the params are placed by ``param_shardings`` and each step is
 ``launch/steps.py::build_train_bundle``'s ``fn`` (``microbatched_grads``
 then ``apply_updates``, in place, as the reference donates its state). On
 one rank every tensor stays plain and the run is the single-card one bit
-for bit. Across ranks (``torchrun``) the dense archs train sharded, and a
-checkpoint gathers the full tensors and is written by rank 0; the MoE,
-Mamba and xLSTM archs raise (ROADMAP item 10c-2). The default
+for bit. Across ranks (``torchrun``) every arch trains sharded (the MoE,
+Mamba and xLSTM layers through their per-rank bodies, autograd crossing
+their collectives), and a checkpoint gathers the full tensors and is
+written by rank 0. The default
 ``--checkpoint-dir`` lies under the temporary directory (``TMPDIR``).
 """
 from __future__ import annotations
@@ -39,10 +40,9 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import full_tensor, mesh_size
 from repro_torch.launch.mesh import describe, run_mesh
 from repro_torch.launch.sharding import make_rules
-from repro_torch.launch.steps import build_train_bundle
+from repro_torch.launch.steps import build_train_bundle, place_params
 from repro_torch.launch.steps import train_step  # noqa: F401 (re-exported)
 from repro_torch.models.registry import make_lm_model
-from repro_torch.runtime.elastic import reshard_tree
 from repro_torch.runtime.fault import Heartbeat, StragglerDetector
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_state import TrainState
@@ -98,7 +98,8 @@ def _train(args, dev: torch.device, mesh) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     if mesh is not None:
-        params = reshard_tree(params, bundle.in_shardings[0].params)
+        params = place_params(arch, params, bundle.in_shardings[0].params,
+                              mesh, rules)
     state = TrainState.create(params, opt_cfg)
     del params
     hb, sd = Heartbeat(), StragglerDetector()

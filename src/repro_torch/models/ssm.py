@@ -13,9 +13,20 @@ ds] lives at a time. Decode is one recurrent step.
 The cache ({"conv": [B, d_conv - 1, di] in the config's dtype, "ssm":
 [B, di, ds] fp32}) is written in place with ``copy_``: the model hands
 each layer views of its stacked cache leaves (``models/transformer.py``).
+
+Across ranks (a DTensor x) the layer is tensor-parallel over d_inner
+("ff"), as ``mamba_defs`` and ``mamba_cache_defs`` lay it out: each model
+rank runs ``mamba_rank`` on its channels (the in-projections, the conv,
+``w_dt_up``, ``dt_bias``, ``a_log``, ``d_skip``, the scan, the gate and
+its cache channels stay local). Three contractions run over the split
+d_inner: ``w_bc`` and ``w_dt_down``, whose per-token results are summed
+over the ranks once a layer call ahead of the chunk loop, and ``w_out``,
+whose terms the ranks sum into y. The one-rank path keeps its per-chunk
+projections, bit for bit as before.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -24,7 +35,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ParamDef, constrain
+from repro_torch.distributed import (
+    ParamDef,
+    constrain,
+    is_dtensor,
+    run_mixer,
+    term,
+)
 from repro_torch.models.layers import param_dtype
 
 MAMBA_CHUNK = 32  # tokens per scan chunk (read at call time)
@@ -82,11 +99,20 @@ def last_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(x, (0, 0, n, 0))[:, -n:]
 
 
-def _ssm_inputs(params, xc: torch.Tensor):
-    """xc [B, S, di] -> (dA, dBx [B, S, di, ds], c_in [B, S, ds]), fp32."""
-    bc = (xc @ params["w_bc"]).float()
+def _ssm_inputs(params, xc: torch.Tensor, proj=None):
+    """xc [B, S, di] -> (dA, dBx [B, S, di, ds], c_in [B, S, ds]), fp32.
+    ``proj`` [B, S, 2 ds + dt_rank] fp32, the per-token projections
+    [xc @ w_bc | xc @ w_dt_down] summed over the model ranks
+    (``mamba_rank``), stands in for xc's own."""
+    if proj is None:
+        bc = (xc @ params["w_bc"]).float()
+        dt_low = xc @ params["w_dt_down"]
+    else:  # rounded to xc's dtype, as its own projections would be
+        n = params["w_bc"].shape[1]
+        bc, dt_low = proj[..., :n].to(xc.dtype).float(), proj[
+            ..., n:].to(xc.dtype)
     b_in, c_in = bc.chunk(2, dim=-1)
-    dt = ((xc @ params["w_dt_down"]) @ params["w_dt_up"]).float()
+    dt = (dt_low @ params["w_dt_up"]).float()
     # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
     # where the two differ by log1p(e^-20) < 2.1e-9, below fp32's step.
     dt = F.softplus(dt + params["dt_bias"])
@@ -108,9 +134,10 @@ def _scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def _chunk(params, h0: torch.Tensor, xc: torch.Tensor):
-    """One chunk: h0 [B, di, ds], xc [B, L, di] -> (h_L, y [B, L, di])."""
-    dA, dBx, c_in = _ssm_inputs(params, xc)
+def _chunk(params, h0: torch.Tensor, xc: torch.Tensor, proj=None):
+    """One chunk: h0 [B, di, ds], xc [B, L, di] (``proj`` its rows of the
+    summed projections, or None) -> (h_L, y [B, L, di])."""
+    dA, dBx, c_in = _ssm_inputs(params, xc, proj)
     a_cum, b_cum = _scan(dA, dBx)
     h = a_cum * h0[:, None] + b_cum
     y = torch.einsum("bsdn,bsn->bsd", h, c_in)
@@ -118,14 +145,47 @@ def _chunk(params, h0: torch.Tensor, xc: torch.Tensor):
     return h[:, -1], y
 
 
+def _decode_step(params, xc: torch.Tensor, cache: dict, proj=None):
+    """One recurrent step from ``cache["ssm"]``, written in place ->
+    y [B, 1, di] fp32."""
+    dA, dBx, c_in = _ssm_inputs(params, xc, proj)
+    h = dA[:, 0] * cache["ssm"] + dBx[:, 0]
+    y = torch.einsum("bdn,bn->bd", h, c_in[:, 0])[:, None]
+    y = y + xc.float() * params["d_skip"]
+    cache["ssm"].copy_(h)
+    return y
+
+
+def _chunk_loop(params, xc: torch.Tensor, mode: str, proj=None):
+    """The chunked scan over xc [B, S, di] from h = 0 -> (h_S, y [B, S,
+    di] fp32); each chunk under ``checkpoint`` in training."""
+    b, s, di = xc.shape
+    csz = MAMBA_CHUNK if s % MAMBA_CHUNK == 0 else s
+    remat = mode == "train" and torch.is_grad_enabled()
+    h = xc.new_zeros((b, di, params["a_log"].shape[1]), dtype=torch.float32)
+    ys = []
+    for c in range(0, s, csz):
+        part = (xc[:, c:c + csz],) + (() if proj is None
+                                      else (proj[:, c:c + csz],))
+        if remat:
+            h, y_c = checkpoint(_chunk, params, h, *part,
+                                use_reentrant=False)
+        else:
+            h, y_c = _chunk(params, h, *part)
+        ys.append(y_c)
+    return h, torch.cat(ys, 1)
+
+
 def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                   cache: Optional[dict] = None):
     """x [B, S, D] -> (y [B, S, D], cache or None). Decode reads and
-    prefill fills ``cache`` in place (module docstring)."""
-    b, s, d = x.shape
-    di = cfg.mamba_expand * d
-    ds = cfg.mamba_d_state
-
+    prefill fills ``cache`` in place (module docstring). A DTensor x runs
+    tensor-parallel over d_inner (``mamba_rank`` on each rank)."""
+    if is_dtensor(x):
+        y = run_mixer(functools.partial(mamba_rank, cfg=cfg, mode=mode),
+                      params, mamba_defs(cfg), x, cache,
+                      mamba_cache_defs(cfg, 1))
+        return y, (cache if mode != "train" else None)
     xi = constrain(x @ params["w_in_x"], "act_batch", "act_seq", "ff")
     z = x @ params["w_in_z"]
 
@@ -133,28 +193,12 @@ def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
         xc, conv_state = causal_conv(xi, params["conv_w"], params["conv_b"],
                                      cache["conv"])
         xc = F.silu(xc)
-        dA, dBx, c_in = _ssm_inputs(params, xc)
-        h = dA[:, 0] * cache["ssm"] + dBx[:, 0]
-        y = torch.einsum("bdn,bn->bd", h, c_in[:, 0])[:, None]
-        y = y + xc.float() * params["d_skip"]
+        y = _decode_step(params, xc, cache)
         cache["conv"].copy_(conv_state)
-        cache["ssm"].copy_(h)
     else:
         xc, _ = causal_conv(xi, params["conv_w"], params["conv_b"])
         xc = F.silu(xc)
-        csz = MAMBA_CHUNK if s % MAMBA_CHUNK == 0 else s
-        remat = mode == "train" and torch.is_grad_enabled()
-        h = x.new_zeros((b, di, ds), dtype=torch.float32)
-        ys = []
-        for c in range(0, s, csz):
-            xc_c = xc[:, c:c + csz]
-            if remat:
-                h, y_c = checkpoint(_chunk, params, h, xc_c,
-                                    use_reentrant=False)
-            else:
-                h, y_c = _chunk(params, h, xc_c)
-            ys.append(y_c)
-        y = torch.cat(ys, 1)
+        h, y = _chunk_loop(params, xc, mode)
         if mode == "prefill" and cache is not None:
             cache["conv"].copy_(last_rows(xi, cfg.mamba_d_conv - 1))
             cache["ssm"].copy_(h)
@@ -162,6 +206,38 @@ def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     y = (y * F.silu(z.float())).to(x.dtype)
     y = constrain(y, "act_batch", "act_seq", "ff")
     return y @ params["w_out"], (cache if mode != "train" else None)
+
+
+def mamba_rank(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+               cache: Optional[dict] = None):
+    """One model rank's Mamba layer (a per-rank body of
+    ``distributed.py``): ``params`` hold its share of d_inner ("ff", every
+    leaf but ``w_dt_down``'s and ``w_bc``'s second dim) and the whole of
+    the rest, x [B, S, D] is whole over the model axis, and ``cache`` holds
+    its channels, read and written in place. A generator: it yields its
+    term of the per-token projections [xc @ w_bc | xc @ w_dt_down] (its
+    channels' share of two contractions over d_inner, ``distributed.term``)
+    once a call, not once a chunk, and resumes with their sum over the
+    ranks. Returns (its term of y [B, S, D], fp32; y is the sum over the
+    ranks in x's dtype)."""
+    xi = x @ params["w_in_x"]
+    z = x @ params["w_in_z"]
+    conv_state = cache["conv"] if mode == "decode" else None
+    xc, new_conv = causal_conv(xi, params["conv_w"], params["conv_b"],
+                               conv_state)
+    xc = F.silu(xc)
+    proj = yield term(xc, torch.cat([params["w_bc"], params["w_dt_down"]],
+                                    1))
+    if mode == "decode":
+        y = _decode_step(params, xc, cache, proj)
+        cache["conv"].copy_(new_conv)
+    else:
+        h, y = _chunk_loop(params, xc, mode, proj)
+        if mode == "prefill" and cache is not None:
+            cache["conv"].copy_(last_rows(xi, cfg.mamba_d_conv - 1))
+            cache["ssm"].copy_(h)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return (term(y, params["w_out"]),)
 
 
 def mamba_cache_defs(cfg: ArchConfig, batch: int):

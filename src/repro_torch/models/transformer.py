@@ -21,7 +21,10 @@ Caches are written in place, unlike the reference, which returns new ones:
 ``hidden`` hands each block views of its group's slice of the stacked cache
 leaves (``leaf[g]``), and every mixer writes its new state into those views
 (``copy_``, or indexed assignment for the attention ring). A mixer that
-rebound a cache entry instead would lose the state silently.
+rebound a cache entry instead would lose the state silently. On a mesh
+of several ranks the caches are DTensors laid out by their defs
+(``init_caches``); each mixer writes its rank's part of them, and ``aux``
+is a replicated DTensor, summed over the layers as on one rank.
 """
 from __future__ import annotations
 

@@ -18,9 +18,21 @@ are written in place with ``copy_``: the model hands each layer views of
 its stacked cache leaves (``models/transformer.py``). ``torch.maximum``
 stands where the reference has ``jnp.maximum``: both split the gradient
 equally at a tie.
+
+Across ranks (a DTensor x) both mixers follow the reference's layout:
+their in- and out-projections are tensor-parallel over "model" ("ff" /
+"ff2"), and the recurrences' weights and state (the mLSTM's C and n, the
+sLSTM's ``r_*`` and c, n, h, m) are replicated. Each model rank's body
+(``mlstm_rank``, ``slstm_rank``) computes its share of the projections
+into the recurrence, the ranks sum them, every rank runs the recurrence
+whole, alike, and each keeps its own channels of the output for its term
+of the out-projection. (Splitting the heads instead would keep the
+recurrence local, but it would lay the state out otherwise than the
+reference does.)
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -29,7 +41,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ParamDef, constrain
+from repro_torch.distributed import (
+    ParamDef,
+    constrain,
+    is_dtensor,
+    model_range,
+    run_mixer,
+    term,
+)
 from repro_torch.models.layers import param_dtype
 from repro_torch.models.ssm import causal_conv, last_rows
 
@@ -106,21 +125,64 @@ def _mlstm_step(C, n, q, k, v, lf, li):
     return C, n, h
 
 
-def _group_rms(h: torch.Tensor, scale: torch.Tensor, nh: int):
+def _group_rms(h: torch.Tensor, scale: torch.Tensor, nh: int, lo: int = 0):
     """Per-head RMS norm (the reference's GroupNorm stand-in). h [..., di]
-    fp32, eps 1e-6 inside the rsqrt."""
+    fp32, eps 1e-6 inside the rsqrt. A ``scale`` narrower than h (a
+    rank's channels) takes h's channels ``lo`` .. after the norm."""
     shp = h.shape
     hh = h.reshape(shp[:-1] + (nh, shp[-1] // nh))
     var = hh.square().mean(-1, keepdim=True)
     hh = hh * torch.rsqrt(var + 1e-6)
-    return hh.reshape(shp) * scale
+    hh = hh.reshape(shp)
+    if scale.shape[-1] != shp[-1]:
+        hh = hh[..., lo:lo + scale.shape[-1]]
+    return hh * scale
+
+
+def _mlstm_recurrence(q, k, v, lf, li, *, mode: str, cache=None):
+    """The mLSTM over q, k, v [B, S, H, dh] and the log gates [B, S, H]
+    (fp32): one step from ``cache``'s C and n in decode, else the chunk
+    loop from zero; decode and a prefill with a cache write C and n in
+    place. -> h [B, S, H, dh]."""
+    if mode == "decode":
+        C, n, hh = _mlstm_step(cache["C"], cache["n"], q[:, 0], k[:, 0],
+                               v[:, 0], lf[:, 0], li[:, 0])
+        cache["C"].copy_(C)
+        cache["n"].copy_(n)
+        return hh[:, None]  # [B, 1, H, dh]
+    b, s, nh, dh = q.shape
+    csz = MLSTM_CHUNK if s % MLSTM_CHUNK == 0 else s
+    remat = mode == "train" and torch.is_grad_enabled()
+    C = q.new_zeros((b, nh, dh, dh))
+    n = q.new_zeros((b, nh, dh))
+    hs = []
+    for c in range(0, s, csz):
+        part = [t[:, c:c + csz] for t in (q, k, v, lf, li)]
+        if remat:
+            C, n, h_c = checkpoint(_mlstm_chunk, C, n, *part,
+                                   use_reentrant=False)
+        else:
+            C, n, h_c = _mlstm_chunk(C, n, *part)
+        hs.append(h_c)
+    if mode == "prefill" and cache is not None:
+        cache["C"].copy_(C)
+        cache["n"].copy_(n)
+    return torch.cat(hs, 1)
 
 
 def mlstm_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                   cache: Optional[dict] = None):
     """x [B, S, D] -> (y [B, S, D], cache or None). q and k come from the
     conv's output, v from its input; k is scaled by dh^-1/2 in the
-    config's dtype."""
+    config's dtype. A DTensor x runs tensor-parallel (``mlstm_rank``)."""
+    if is_dtensor(x):
+        lo, _ = model_range(x.device_mesh, int(cfg.mlstm_proj_factor
+                                               * cfg.d_model))
+        y = run_mixer(functools.partial(mlstm_rank, cfg=cfg, mode=mode,
+                                        lo=lo),
+                      params, mlstm_defs(cfg), x, cache,
+                      mlstm_cache_defs(cfg, 1))
+        return y, (cache if mode != "train" else None)
     b, s, d = x.shape
     di = int(cfg.mlstm_proj_factor * d)
     nh = cfg.num_heads
@@ -144,36 +206,66 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     li = IGATE_CAP * torch.tanh((xc32 @ params["w_i"] + params["b_i"])
                                 / IGATE_CAP)
 
+    h = _mlstm_recurrence(q, k, v, lf, li, mode=mode, cache=cache)
     if mode == "decode":
-        C, n, hh = _mlstm_step(cache["C"], cache["n"], q[:, 0], k[:, 0],
-                               v[:, 0], lf[:, 0], li[:, 0])
-        h = hh[:, None]  # [B, 1, H, dh]
         cache["conv"].copy_(new_conv)
-        cache["C"].copy_(C)
-        cache["n"].copy_(n)
-    else:
-        csz = MLSTM_CHUNK if s % MLSTM_CHUNK == 0 else s
-        remat = mode == "train" and torch.is_grad_enabled()
-        C = x.new_zeros((b, nh, dh, dh), dtype=torch.float32)
-        n = x.new_zeros((b, nh, dh), dtype=torch.float32)
-        hs = []
-        for c in range(0, s, csz):
-            part = [t[:, c:c + csz] for t in (q, k, v, lf, li)]
-            if remat:
-                C, n, h_c = checkpoint(_mlstm_chunk, C, n, *part,
-                                       use_reentrant=False)
-            else:
-                C, n, h_c = _mlstm_chunk(C, n, *part)
-            hs.append(h_c)
-        h = torch.cat(hs, 1)
-        if mode == "prefill" and cache is not None:
-            cache["conv"].copy_(last_rows(xi, params["conv_w"].shape[0] - 1))
-            cache["C"].copy_(C)
-            cache["n"].copy_(n)
+    elif mode == "prefill" and cache is not None:
+        cache["conv"].copy_(last_rows(xi, params["conv_w"].shape[0] - 1))
 
     h = _group_rms(h.reshape(b, -1, di), params["gn_scale"], nh)
     y = (h * F.silu(z.float())).to(x.dtype)
     return y @ params["w_out"], (cache if mode != "train" else None)
+
+
+def mlstm_rank(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+               cache: Optional[dict] = None, lo: int = 0):
+    """One model rank's mLSTM layer (a per-rank body of
+    ``distributed.py``): ``params`` hold its channels ``lo`` .. of d_inner
+    ("ff": the in-projections, the conv, the rows of ``w_q`` / ``w_k`` /
+    ``w_v`` / ``w_i`` / ``w_f``, ``gn_scale``, ``w_out``'s rows), x [B, S,
+    D] is whole, ``cache`` its conv channels and the whole C and n. A
+    generator: it yields its term of [q | k | v | f | i] (its channels'
+    share of five contractions over d_inner, ``distributed.term``) once a
+    call and resumes with their sum, then runs the recurrence whole, as
+    every rank does alike (C and n are replicated over the model axis, as
+    the reference lays them out), and keeps its own channels of h for the
+    gate and the out-projection. Returns (its term of y [B, S, D],
+    fp32)."""
+    b, s, d = x.shape
+    di = int(cfg.mlstm_proj_factor * d)
+    nh = cfg.num_heads
+    dh = di // nh
+
+    xi = x @ params["w_in_x"]
+    z = x @ params["w_in_z"]
+    conv_state = cache["conv"] if mode == "decode" else None
+    xc, new_conv = causal_conv(xi, params["conv_w"], params["conv_b"],
+                               conv_state)
+    xc = F.silu(xc)
+    xc32 = xc.float()
+    full = yield torch.cat([term(xc, params["w_q"]), term(xc, params["w_k"]),
+                            term(xi, params["w_v"]), xc32 @ params["w_f"],
+                            xc32 @ params["w_i"]], -1)
+    q, k, v, f_pre, i_pre = full.split([di, di, di, nh, nh], -1)
+
+    def heads(t):  # rounded to the activations' dtype, as a projection
+        return t.to(x.dtype).reshape(b, -1, nh, dh)
+
+    q = heads(q).float()
+    k = (heads(k) / math.sqrt(dh)).float()
+    v = heads(v).float()
+    lf = F.logsigmoid(f_pre + params["b_f"])
+    li = IGATE_CAP * torch.tanh((i_pre + params["b_i"]) / IGATE_CAP)
+
+    h = _mlstm_recurrence(q, k, v, lf, li, mode=mode, cache=cache)
+    if mode == "decode":
+        cache["conv"].copy_(new_conv)
+    elif mode == "prefill" and cache is not None:
+        cache["conv"].copy_(last_rows(xi, params["conv_w"].shape[0] - 1))
+
+    h = _group_rms(h.reshape(b, -1, di), params["gn_scale"], nh, lo)
+    y = (h * F.silu(z.float())).to(x.dtype)
+    return (term(y, params["w_out"]),)
 
 
 def mlstm_cache_defs(cfg: ArchConfig, batch: int):
@@ -232,41 +324,88 @@ def _slstm_step(r_all, state, gates_x, dh: int):
     return c_new, n_new, h_new, m_new
 
 
+def _slstm_recurrence(r_all, gx, *, mode: str, cache=None):
+    """The sLSTM over gx [B, S, H, 4 dh] (fp32): one step from ``cache``
+    in decode, else step by step from zero (m at -1e9); decode and a
+    prefill with a cache write it in place. -> h [B, S, H, dh]."""
+    b, s, nh, dh4 = gx.shape
+    dh = dh4 // 4
+    if mode == "decode":
+        state = tuple(cache[key] for key in ("c", "n", "h", "m"))
+        state = _slstm_step(r_all, state, gx[:, 0], dh)
+        for key, new in zip(("c", "n", "h", "m"), state):
+            cache[key].copy_(new)
+        return state[2][:, None]
+    zeros = gx.new_zeros((b, nh, dh))
+    state = (zeros, zeros, zeros, torch.full_like(zeros, -1e9))
+    outs = []
+    for t in range(s):
+        state = _slstm_step(r_all, state, gx[:, t], dh)
+        outs.append(state[2])
+    if mode == "prefill" and cache is not None:
+        for key, new in zip(("c", "n", "h", "m"), state):
+            cache[key].copy_(new)
+    return torch.stack(outs, 1)  # [B, S, H, dh]
+
+
+def _slstm_up(params, hs: torch.Tensor, x: torch.Tensor, nh: int):
+    """The head-wise norm of h [B, S, H, dh] and the post up projection
+    (GeGLU, factor 4/3; jax.nn.gelu is the tanh approximation) to
+    whichever share of d_up ``params`` hold."""
+    b, d = x.shape[0], x.shape[-1]
+    h = _group_rms(hs.reshape(b, -1, d), params["gn_scale"], nh).to(x.dtype)
+    return (F.gelu(h @ params["w_up1"], approximate="tanh")
+            * (h @ params["w_up2"]))
+
+
 def slstm_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                   cache: Optional[dict] = None):
-    """x [B, S, D] -> (y [B, S, D], cache or None)."""
+    """x [B, S, D] -> (y [B, S, D], cache or None). A DTensor x runs
+    tensor-parallel (``slstm_rank``)."""
+    if is_dtensor(x):
+        lo, _ = model_range(x.device_mesh, cfg.d_model)
+        y = run_mixer(functools.partial(slstm_rank, cfg=cfg, mode=mode,
+                                        lo=lo),
+                      params, slstm_defs(cfg), x, cache,
+                      slstm_cache_defs(cfg, 1))
+        return y, (cache if mode != "train" else None)
     b, s, d = x.shape
     nh = cfg.num_heads
     dh = d // nh
     gx = torch.cat([((x @ params[f"w_{g}"]).float() + params[f"b_{g}"])
                     .reshape(b, s, nh, dh) for g in SLSTM_GATES], -1)
     r_all = torch.cat([params[f"r_{g}"] for g in SLSTM_GATES], -1)
-
-    if mode == "decode":
-        state = tuple(cache[key] for key in ("c", "n", "h", "m"))
-        state = _slstm_step(r_all, state, gx[:, 0], dh)
-        hs = state[2][:, None]
-        for key, new in zip(("c", "n", "h", "m"), state):
-            cache[key].copy_(new)
-    else:
-        zeros = x.new_zeros((b, nh, dh), dtype=torch.float32)
-        state = (zeros, zeros, zeros, torch.full_like(zeros, -1e9))
-        outs = []
-        for t in range(s):
-            state = _slstm_step(r_all, state, gx[:, t], dh)
-            outs.append(state[2])
-        hs = torch.stack(outs, 1)  # [B, S, H, dh]
-        if mode == "prefill" and cache is not None:
-            for key, new in zip(("c", "n", "h", "m"), state):
-                cache[key].copy_(new)
-
-    h = _group_rms(hs.reshape(b, -1, d), params["gn_scale"], nh).to(x.dtype)
-    # Post up / down projection (GeGLU, factor 4/3); jax.nn.gelu is the
-    # tanh approximation.
-    y = (F.gelu(h @ params["w_up1"], approximate="tanh")
-         * (h @ params["w_up2"]))
-    y = constrain(y, "act_batch", "act_seq", "ff")
+    hs = _slstm_recurrence(r_all, gx, mode=mode, cache=cache)
+    y = constrain(_slstm_up(params, hs, x, nh), "act_batch", "act_seq", "ff")
     return y @ params["w_down"], (cache if mode != "train" else None)
+
+
+def slstm_rank(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+               cache: Optional[dict] = None, lo: int = 0):
+    """One model rank's sLSTM layer (a per-rank body of
+    ``distributed.py``): ``params`` hold its columns ``lo`` .. of the four
+    gate projections ("ff2") and its share of d_up ("ff": ``w_up1`` /
+    ``w_up2``'s columns, ``w_down``'s rows), and the whole recurrent
+    matrices, biases and norm; x [B, S, D] is whole, ``cache`` the whole
+    state. A generator: it yields its gate preactivations [B, S, 4, D]
+    (fp32) zero outside its columns and resumes with their sum over the
+    ranks, the whole preactivations; then runs the recurrence whole, as
+    every rank does alike (its weights and state are replicated over the
+    model axis, as the reference lays them out), and its share of the
+    up / down projection. Returns (its term of y [B, S, D], fp32)."""
+    b, s, d = x.shape
+    nh = cfg.num_heads
+    dh = d // nh
+    cols = params["w_z"].shape[1]
+    gx = torch.stack([(x @ params[f"w_{g}"]).float()
+                      + params[f"b_{g}"][lo:lo + cols]
+                      for g in SLSTM_GATES], 2)  # [B, S, 4, cols]
+    gx = yield F.pad(gx, (lo, d - lo - cols))
+    gx = gx.reshape(b, s, 4, nh, dh).transpose(2, 3).reshape(b, s, nh,
+                                                             4 * dh)
+    r_all = torch.cat([params[f"r_{g}"] for g in SLSTM_GATES], -1)
+    hs = _slstm_recurrence(r_all, gx, mode=mode, cache=cache)
+    return (term(_slstm_up(params, hs, x, nh), params["w_down"]),)
 
 
 def slstm_cache_defs(cfg: ArchConfig, batch: int):

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -56,12 +57,28 @@ def init_opt_state(params, cfg: OptimizerConfig):
     return {"mu": tree_map(f32, params), "nu": tree_map(f32, params)}
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² in fp32. A DTensor sums its local part and the ranks' parts
+    over each mesh dim that splits it (DTensor cannot flatten a dim split
+    unevenly, such as the sLSTM's d_up of 85 over 2 ranks)."""
+    if not is_dtensor(x):
+        x32 = x.float().reshape(-1)
+        return torch.dot(x32, x32)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    x32 = x.to_local().float().reshape(-1)
+    sq = DTensor.from_local(torch.dot(x32, x32), mesh, [
+        Partial() if isinstance(p, Shard) else Replicate()
+        for p in x.placements])
+    return sq.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt(Σ over leaves of Σ x²), in fp32, on the leaves' device."""
     total = None
     for x in tree_leaves(tree):
-        x32 = x.float().reshape(-1)
-        sq = torch.dot(x32, x32)
+        sq = _square_sum(x)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

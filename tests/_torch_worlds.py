@@ -141,6 +141,17 @@ TRAIN = ["--arch", "gemma2-2b", "--reduced", "--device", "cpu", "--steps",
          "1", "--batch", "2", "--seq", "32", "--log-every", "1",
          "--checkpoint-every", "1"]
 
+# The MoE, Mamba-hybrid and xLSTM archs' driver runs across ranks: SERVE's
+# and TRAIN's setups with the arch replaced.
+MIXER_DRIVER_ARCHS = ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m")
+
+
+def mixer_argv(argv: list, arch: str) -> list:
+    """``argv`` (SERVE or TRAIN) with ``--arch`` set to ``arch``."""
+    out = list(argv)
+    out[out.index("--arch") + 1] = arch
+    return out
+
 
 def _train_setup(mesh, batch: int = 2, **bundle_kw):
     """(model, rules, params laid out by the bundle, a batch, the train
@@ -211,7 +222,8 @@ def mesh_drivers(rank, world, directory) -> None:
     (2, 1); one train step at (1, 2) (its gradients, the driver's final
     params and checkpoint); ``compressed_cross_pod_mean`` over a ("pod",)
     mesh of 2 with each rank's own gradients; ``reshard_tree`` and
-    ``constrain`` over the (1, 2) mesh; a MoE arch above one rank. Rank 0
+    ``constrain`` over the (1, 2) mesh; the serve and train drivers of
+    ``MIXER_DRIVER_ARCHS`` at (1, 2) (``mixer_argv``). Rank 0
     writes ``mesh_drivers.npz``, each rank its ``pod_<rank>.npz``."""
     import numpy as np
     import torch
@@ -281,12 +293,16 @@ def mesh_drivers(rank, world, directory) -> None:
         out["order_raises"] = np.array("")
     except ValueError as e:
         out["order_raises"] = np.array(str(e))
-    try:
-        serve.serve(["--arch", "mixtral-8x7b", "--reduced", "--device", "cpu",
-                     "--model-parallel", "2"])
-        out["moe_raises"] = np.array("")
-    except NotImplementedError as e:
-        out["moe_raises"] = np.array(str(e))
+    for arch in MIXER_DRIVER_ARCHS:
+        res = serve.serve(mixer_argv(SERVE, arch) + ["--model-parallel", "2"])
+        out[f"{arch}_serve_tokens"] = res["tokens"]
+        out[f"{arch}_serve_logits"] = res["logits"].numpy()
+        res = train.train(mixer_argv(TRAIN, arch) + [
+            "--model-parallel", "2", "--checkpoint-dir",
+            os.path.join(directory, f"ckpt_{arch}")])
+        out[f"{arch}_train_loss"] = np.array(res["loss"])
+        for i, p in enumerate(tree_leaves(res["params"])):
+            out[f"{arch}_param_{i}"] = full_tensor(p).numpy()
 
     # compressed_cross_pod_mean over ("pod",) of 2, distinct per rank.
     pods = init_device_mesh("cpu", (2,), mesh_dim_names=("pod",))
@@ -309,3 +325,220 @@ def mesh_drivers(rank, world, directory) -> None:
     _save(directory, f"pod_{rank}.npz", mine)
     if rank == 0:
         _save(directory, "mesh_drivers.npz", out)
+
+
+# ------------------------------------------------ the MoE / mixer layers
+def _layer_mesh(world: int, model: int):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", (world // model, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def _record_rank_shapes(seen: list):
+    """Wrap the per-rank bodies of ``models/moe.py`` and ``models/ssm.py``
+    so each call records the shapes it was handed: the experts of its
+    ``w_gate`` / ``w_down`` and the channels of its Mamba leaves and
+    caches."""
+    from repro_torch.models import moe, ssm
+
+    moe_rank, mamba_rank = moe.moe_rank, ssm.mamba_rank
+
+    def moe_recording(x, router, w_gate, w_up, w_down, cfg, **kw):
+        seen.append(("moe", tuple(w_gate.shape), tuple(w_down.shape),
+                     kw["first"]))
+        return moe_rank(x, router, w_gate, w_up, w_down, cfg, **kw)
+
+    def mamba_recording(params, x, cfg, **kw):
+        cache = kw.get("cache") or {}
+        seen.append(("mamba", tuple(params["w_in_x"].shape),
+                     tuple(params["w_out"].shape),
+                     tuple(cache["ssm"].shape) if "ssm" in cache else ()))
+        return mamba_rank(params, x, cfg, **kw)
+
+    moe.moe_rank, ssm.mamba_rank = moe_recording, mamba_recording
+
+
+def _moe_cfg(experts=None):
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_arch("mixtral-8x7b").reduced()
+    return cfg if experts is None else dataclasses.replace(
+        cfg, num_experts=experts)
+
+
+def _moe_run(cfg, params, data, mesh, kind: str, out: dict, tag: str):
+    """The MoE layer on ``mesh`` under ``kind``'s rules (train: forward
+    and the gradients of sum(y·w) + aux; decode: one token a row, no
+    drop): y, aux and the gradients, whole, into ``out``."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import placements, place_tree, use_rules
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    x = torch.from_numpy(data["x"] if kind == "train" else data["x"][:, :1])
+    rules = make_rules(cfg, ShapeConfig(kind, x.shape[1], x.shape[0], kind),
+                       mesh)
+    with use_rules(rules, mesh):
+        live = tree_map(lambda t: t.detach().requires_grad_(True),
+                        place_tree(params, moe.moe_defs(cfg)))
+        xd = distribute_tensor(x, mesh, placements(rules.spec_for(
+            ("act_batch", None, None)), mesh))
+        y, aux = moe.moe_forward(live, xd, cfg, no_drop=kind == "decode")
+        if kind == "train":
+            ((y * torch.from_numpy(data["w"])).sum() + aux).backward()
+            for k, v in live.items():
+                out[f"{tag}_g_{k}"] = v.grad.full_tensor().numpy()
+                out[f"{tag}_local_{k}"] = np.array(v.to_local().shape)
+    out[f"{tag}_y"] = y.full_tensor().detach().numpy()
+    out[f"{tag}_aux"] = aux.full_tensor().detach().numpy()
+
+
+def expert_parallel(rank, world, directory, inputs: str) -> None:
+    """Reduced mixtral-8x7b's MoE layer on a (2, 2) mesh, under the train
+    and decode rules (``_moe_run``) from the inputs of ``inputs``, each
+    rank's body recording its shapes; rank 0 writes ``port_ep.npz``, every
+    rank ``ep_<rank>.npz`` with its recorded shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    data = dict(np.load(inputs))
+    moe.MOE_GROUP = int(data["group"])
+    seen = []
+    _record_rank_shapes(seen)
+    cfg = _moe_cfg()
+    params = {k[2:]: torch.from_numpy(v) for k, v in data.items()
+              if k.startswith("p_")}
+    mesh = _layer_mesh(world, 2)
+    out = {}
+    for kind in ("train", "decode"):
+        _moe_run(cfg, params, data, mesh, kind, out, kind)
+    _save(directory, f"ep_{rank}.npz", {
+        "seen": np.array([s[1] + s[2] + (s[3],) for s in seen]),
+        "coord": np.array(mesh.get_coordinate())})
+    if rank == 0:
+        _save(directory, "port_ep.npz", out)
+
+
+def _mixer_chain(layer: str, cfg, params, data, mesh, out: dict) -> None:
+    """One Mamba / mLSTM / sLSTM layer on ``mesh`` (None: plain tensors):
+    under the train rules the output and the gradients of sum(y·w); under
+    the decode rules a prefill of ``data["x"]`` into a zero cache laid out
+    by the cache defs, then a decode step for each row of ``data["steps"]``
+    against it; outputs and the final cache, whole, into ``out``."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import (full_tensor, is_param_def,
+                                         place_tree, placements, use_rules)
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.models import ssm, xlstm
+    from repro_torch.tree import tree_map
+
+    defs, fwd, cdefs = {
+        "mamba": (ssm.mamba_defs, ssm.mamba_forward, ssm.mamba_cache_defs),
+        "mlstm": (xlstm.mlstm_defs, xlstm.mlstm_forward,
+                  xlstm.mlstm_cache_defs),
+        "slstm": (xlstm.slstm_defs, xlstm.slstm_forward,
+                  xlstm.slstm_cache_defs)}[layer]
+    x = torch.from_numpy(data["x"])
+    steps = torch.from_numpy(data["steps"])
+    b, s, _ = x.shape
+
+    def lay(t, rules):
+        if mesh is None:
+            return t
+        return distribute_tensor(t, mesh, placements(rules.spec_for(
+            ("act_batch", None, None)), mesh))
+
+    for kind in ("train", "decode"):
+        rules = None if mesh is None else make_rules(
+            cfg, ShapeConfig(kind, s + steps.shape[1], b, kind), mesh)
+        with use_rules(rules, mesh):
+            p = place_tree(params, defs(cfg))
+            if kind == "train":
+                live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+                y, _ = fwd(live, lay(x, rules), cfg, mode="train")
+                (y * torch.from_numpy(data["w"])).sum().backward()
+                out["train_y"] = full_tensor(y).detach().numpy()
+                for k, v in live.items():
+                    out[f"g_{k}"] = full_tensor(v.grad).numpy()
+                continue
+            cache = place_tree(tree_map(
+                lambda d: d.initialize(None, "cpu"), cdefs(cfg, b),
+                is_leaf=is_param_def), cdefs(cfg, b))
+            with torch.no_grad():
+                y, _ = fwd(p, lay(x, rules), cfg, mode="prefill",
+                           cache=cache)
+                out["prefill_y"] = full_tensor(y).numpy()
+                for t in range(steps.shape[1]):
+                    y, _ = fwd(p, lay(steps[:, t:t + 1], rules), cfg,
+                               mode="decode", cache=cache)
+                    out[f"decode_y{t}"] = full_tensor(y).numpy()
+            for k, v in cache.items():
+                out[f"cache_{k}"] = full_tensor(v).numpy()
+
+
+def tp_mixers(rank, world, directory, inputs: str) -> None:
+    """On a (1, 2) mesh: reduced jamba-v0.1-52b's Mamba layer and reduced
+    xlstm-125m's mLSTM and sLSTM layers (``_mixer_chain``), and the MoE
+    layer of reduced mixtral-8x7b with 3 experts, which the 2-way expert
+    axis splits into 6 virtual experts (the reference's r = 1 weights
+    carried across by ``convert.experts_to_virtual``); each rank's bodies
+    record their shapes. Rank 0 writes ``port_tp.npz``, every rank
+    ``tp_<rank>.npz``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.convert import experts_to_virtual
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import use_rules
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.models import moe, ssm, xlstm
+
+    data = dict(np.load(inputs))
+    moe.MOE_GROUP = ssm.MAMBA_CHUNK = xlstm.MLSTM_CHUNK = int(data["piece"])
+    seen = []
+    _record_rank_shapes(seen)
+    mesh = _layer_mesh(world, 2)
+    out = {}
+    for layer, arch in (("mamba", "jamba-v0.1-52b"), ("mlstm", "xlstm-125m"),
+                        ("slstm", "xlstm-125m")):
+        sub = {k.split("/", 1)[1]: v for k, v in data.items()
+               if k.startswith(layer + "/")}
+        params = {k[2:]: torch.from_numpy(v) for k, v in sub.items()
+                  if k.startswith("p_")}
+        got = {}
+        _mixer_chain(layer, configs.get_arch(arch).reduced(), params, sub,
+                     mesh, got)
+        out.update({f"{layer}/{k}": v for k, v in got.items()})
+    cfg = _moe_cfg(3)
+    rules = make_rules(cfg, ShapeConfig("train", 8, 2, "train"), mesh)
+    with use_rules(rules, mesh):
+        r = moe.expert_split_factor(cfg)
+    sub = {k.split("/", 1)[1]: v for k, v in data.items()
+           if k.startswith("fission/")}
+    virtual = experts_to_virtual({k[2:]: v for k, v in sub.items()
+                                  if k.startswith("p_")}, r)
+    got = {"r": np.array(r)}
+    _moe_run(cfg, {k: torch.from_numpy(v) for k, v in virtual.items()},
+             sub, mesh, "train", got, "train")
+    out.update({f"fission/{k}": v for k, v in got.items()})
+    _save(directory, f"tp_{rank}.npz", {
+        "moe": np.array([s[1] + s[2] + (s[3],) for s in seen
+                         if s[0] == "moe"]),
+        "mamba": np.array([s[1] + s[2] + s[3] for s in seen
+                           if s[0] == "mamba" and s[3]])})
+    if rank == 0:
+        _save(directory, "port_tp.npz", out)
