@@ -3990,6 +3990,195 @@ def rank_phase(dev="cuda") -> dict:
     return out
 
 
+# Phase 17: the dry run (``launch/dryrun.py``) held against the card. Two
+# one-card cells, each traced on a one-rank mesh and then run for real:
+# gemma2-2b's bf16 prefill at phase 13's 4 x 8192, and the train driver's
+# fp32 step at 1 x 1024 (phases 13 and 15). Then one production cell per
+# mixer family on the (16, 16) fake mesh, as report rows.
+DRY_CELLS = (("prefill", "bfloat16", 4, LM_PROMPT),
+             ("train", "float32", 1, 1024))
+DRY_RUNS = 5  # timed real steps; the share is over their median
+DRY_PEAK = (0.8, 1.25)  # measured peak / predicted peak must lie within
+DRY_PRODUCTION = (("yi-6b", "train_4k"), ("mixtral-8x7b", "prefill_32k"),
+                  ("jamba-v0.1-52b", "prefill_32k"),
+                  ("xlstm-125m", "prefill_32k"))
+
+
+def dry_bundle(kind: str, dtype: str, batch: int, seq: int, mesh, dev):
+    """The bundle of one one-card cell (``DRY_CELLS``) on ``mesh``: the
+    prefill step, or the train driver's (AdamW at its learning rate, one
+    microbatch)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.training.optimizer import OptimizerConfig
+
+    arch = dataclasses.replace(configs.get_arch(LM_ARCH), dtype=dtype)
+    shape = ShapeConfig(f"dry_{kind}", seq, batch, kind)
+    rules = make_rules(arch, shape, mesh)
+    kw = {}
+    if kind == "train":  # launch/train.py's step
+        kw = dict(opt_cfg=OptimizerConfig(name="adamw", lr=1e-3,
+                                          warmup_steps=20, total_steps=3),
+                  num_microbatches=1)
+    return build_bundle(arch, shape, mesh, rules, device=dev, **kw), rules
+
+
+def dry_predict(kind: str, dtype: str, batch: int, seq: int):
+    """The dry run's counts and roofline of a one-card cell, traced on a
+    one-rank mesh over a fake process group (nothing on the card)."""
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.steps import trace_bundle
+
+    with dryrun.fake_world(1):
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        bundle, rules = dry_bundle(kind, dtype, batch, seq, mesh, "cpu")
+        counts = trace_bundle(bundle, mesh, rules, t=seq - 1)
+    return counts, roofline.analyze(counts, 1)
+
+
+def dry_measure(kind: str, dtype: str, batch: int, seq: int,
+                dev="cuda") -> dict:
+    """The same step on the card from ``repro_torch.launch``, on the
+    one-rank host mesh, random weights from a seed: its arguments' bytes,
+    its FLOPs counted as the dry run counts them (one run, the backward
+    on the calling thread), its peak (``max_memory_allocated`` after a
+    warm-up and ``reset_peak_memory_stats``) and the median of DRY_RUNS
+    timed steps."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.launch.counting import Counter, tensor_bytes
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.launch.steps import arg_leaves, bundle_args
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    vocab = configs.get_arch(LM_ARCH).vocab_size
+
+    def make(meta):
+        if meta.dtype.is_floating_point:
+            return (0.02 * torch.randn(meta.shape, generator=gen,
+                                       device=dev)).to(meta.dtype)
+        return torch.randint(0, vocab, meta.shape, generator=gen,
+                             device=dev, dtype=meta.dtype)
+
+    torch.cuda.empty_cache()
+    with host_mesh(1, dev) as mesh:
+        bundle, _ = dry_bundle(kind, dtype, batch, seq, mesh, dev)
+        args = bundle_args(bundle, make, seq - 1)
+        arg_bytes = sum(tensor_bytes(x) for x in arg_leaves(args))
+
+        def step():
+            out = bundle.fn(*args)
+            torch.cuda.synchronize()
+            return out
+
+        step()  # warm-up: cuBLAS workspaces, the kernels' first call
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step()
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        mxq.reset_launch_counts()
+        for _ in range(DRY_RUNS):
+            t0 = time.perf_counter()
+            step()
+            times.append(time.perf_counter() - t0)
+        launches = mxq.launch_counts().get("flash_attention", 0)
+        counter = Counter()
+        with torch.autograd.set_multithreading_enabled(False), counter:
+            out = bundle.fn(*args)
+        del out
+        torch.cuda.synchronize()
+    del args
+    torch.cuda.empty_cache()
+    return {"arg_bytes": arg_bytes, "flops": counter.counts.flops,
+            "kernel_flops": counter.counts.kernel_flops,
+            "peak_bytes": peak, "resident_bytes": base,
+            "median_s": sorted(times)[len(times) // 2], "times_s": times,
+            "launches": launches}
+
+
+def dryrun_phase(dev="cuda") -> dict:
+    """Phase 17: predicted against measured for DRY_CELLS (FLOPs and
+    argument bytes equal, the peak within DRY_PEAK, the step's share of
+    its roofline), then DRY_PRODUCTION on the (16, 16) fake mesh as
+    ``report.render`` rows. A cell that fails to trace fails the phase."""
+    from repro_torch.launch import dryrun, report
+
+    out = {"cells": [], "launches": {}}
+    for kind, dtype, batch, seq in DRY_CELLS:
+        label = f"{LM_ARCH} {kind} {batch}x{seq} {dtype}"
+        t0 = time.perf_counter()
+        counts, rf = dry_predict(kind, dtype, batch, seq)
+        trace_s = time.perf_counter() - t0
+        got = dry_measure(kind, dtype, batch, seq, dev)
+        row = {"cell": label, "trace_s": trace_s,
+               "predicted": {"flops": counts.flops,
+                             "arg_bytes": counts.arg_bytes,
+                             "peak_bytes": counts.peak_bytes,
+                             "temp_bytes": counts.temp_bytes,
+                             "hbm_bytes": counts.hbm_bytes,
+                             "hbm_bytes_unfused": counts.hbm_bytes_unfused,
+                             "t_total_s": rf.t_total,
+                             "bottleneck": rf.bottleneck},
+               "measured": got,
+               "peak_ratio": got["peak_bytes"] / counts.peak_bytes,
+               "roofline_share": rf.t_total / got["median_s"]}
+        out["cells"].append(row)
+        out["launches"][kind] = got["launches"]
+        log("dryrun", f"{label}: FLOPs predicted {counts.flops:.6e} "
+            f"measured {got['flops']:.6e}; argument bytes predicted "
+            f"{counts.arg_bytes} measured {got['arg_bytes']}; peak bytes "
+            f"predicted {counts.peak_bytes} measured {got['peak_bytes']} "
+            f"(x{row['peak_ratio']:.4f}); HBM bytes {counts.hbm_bytes:.6e} "
+            f"fused ({counts.hbm_bytes_unfused:.6e} unfused); roofline "
+            f"t_total {rf.t_total * 1e3:.3f} ms ({rf.bottleneck}; compute "
+            f"{rf.t_compute * 1e3:.3f}, memory {rf.t_memory * 1e3:.3f}) "
+            f"against a median "
+            f"step of {got['median_s'] * 1e3:.3f} ms over {DRY_RUNS}: share "
+            f"{row['roofline_share']:.4f}; trace {trace_s:.1f} s; "
+            f"{got['launches']} attention launches in the timed steps")
+        if got["flops"] != counts.flops:
+            raise AssertionError(f"{label}: measured FLOPs {got['flops']} "
+                                 f"!= predicted {counts.flops}")
+        if got["arg_bytes"] != counts.arg_bytes:
+            raise AssertionError(f"{label}: argument bytes {got['arg_bytes']}"
+                                 f" != predicted {counts.arg_bytes}")
+        lo, hi = DRY_PEAK
+        if not lo <= row["peak_ratio"] <= hi:
+            raise AssertionError(f"{label}: measured peak {got['peak_bytes']}"
+                                 f" outside {DRY_PEAK} x the predicted "
+                                 f"{counts.peak_bytes}")
+        if got["launches"] < 1:
+            raise AssertionError(f"{label}: the real steps launched no "
+                                 "attention kernel")
+    results = []
+    t0 = time.perf_counter()
+    with dryrun.fake_world(256):
+        for arch, shape in DRY_PRODUCTION:
+            row = dryrun.run_cell(arch, shape, False, verbose=False)
+            if row["status"] != "ok":
+                raise AssertionError(f"dry run {arch} x {shape}: "
+                                     f"{row.get('error')}")
+            results.append(row)
+    out["production_s"] = time.perf_counter() - t0
+    out["production"] = results
+    for line in report.render(results, "pod").splitlines():
+        log("dryrun", line)
+    log("dryrun", f"{len(results)} production cells on the (16, 16) fake "
+        f"mesh in {out['production_s']:.1f} s")
+    return out
+
+
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
 GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
     "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
@@ -4610,6 +4799,15 @@ def main() -> None:
     log("ranks", f"phase done in {time.perf_counter() - t0:.2f} s")
     print("[ranks] summary " + json.dumps(ranks, default=float), flush=True)
 
+    # ----------------------------------------------------------- 17 dryrun
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dry = dryrun_phase()
+    log("dryrun", f"phase done in {time.perf_counter() - t0:.2f} s")
+    print("[dryrun] summary " + json.dumps(
+        {"cells": dry["cells"], "launches": dry["launches"]}, default=float),
+        flush=True)
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -4664,6 +4862,7 @@ def main() -> None:
             "serve_example": mixers["serve_example"]["launches"]},
         "launches_sharding": sharding["launches"],
         "launches_mixer_ranks": ranks["launches"],
+        "launches_dryrun": dry["launches"],
         "lse_max_abs_err": max(row["lse_max_abs_err"] for row in
                                attention_rows
                                if row["lse_max_abs_err"] is not None),

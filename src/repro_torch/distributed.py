@@ -261,6 +261,29 @@ def constrain(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
                           placements(rules.spec_for(logical_axes), mesh))
 
 
+FSDP_AXES = ("embed", "expert_in")  # logical axes of a weight's FSDP split
+
+
+def gathered(w: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """A weight as a layer multiplies by it: its FSDP split (the mesh axes
+    of ``FSDP_AXES`` under the current rules) gathered, its tensor-parallel
+    split kept, as the reference's partitioner gathers an FSDP weight
+    before its product. Left to DTensor, a product of batch-split
+    activations with a weight split on its contraction over the same axis
+    runs on whole activations (a partial sum of every rank's). The
+    identity on a plain tensor or without rules."""
+    rules = current_rules()
+    if rules is None or not is_dtensor(w):
+        return w
+    whole = ShardingRules(rules)
+    for name in FSDP_AXES:
+        whole[name] = None
+    want = placements(whole.spec_for(logical_axes), w.device_mesh)
+    if tuple(w.placements) == tuple(want):
+        return w
+    return w.redistribute(w.device_mesh, want)
+
+
 # ----------------------------------------------------------- per-rank bodies
 # A layer that DTensor's own op strategies cannot hold across ranks (the
 # MoE's index dispatch, the Mamba / xLSTM chunk loops) runs as a per-rank
@@ -293,13 +316,15 @@ def token_placements(x) -> List:
 
 def rank_placements(mesh, logical: Sequence[Optional[str]]) -> List:
     """Where a body takes a parameter or cache of these logical axes: the
-    first dim named in ``MODEL_SPLIT`` split over "model", the rest whole
-    (gathered over every other mesh dim)."""
+    first dim named in ``MODEL_SPLIT`` split over "model" (where it has
+    more than one rank: a split in one piece is the whole, as
+    :func:`placements` lays it out), the rest whole (gathered over every
+    other mesh dim)."""
     from torch.distributed.tensor import Replicate, Shard
 
     dims = [d for d, name in enumerate(logical) if name in MODEL_SPLIT]
-    return [Shard(dims[0]) if name == "model" and dims else Replicate()
-            for name in _dim_names(mesh)]
+    return [Shard(dims[0]) if name == "model" and dims and mesh.size(i) > 1
+            else Replicate() for i, name in enumerate(_dim_names(mesh))]
 
 
 def split_dims(tokens: Sequence, mesh) -> Tuple[int, ...]:
@@ -411,10 +436,19 @@ def run_mixer(body, params, defs, x: torch.Tensor, cache=None,
     axes, x as ``token_placements``, each cache leaf taken local where it
     lies (its model dim as ``rank_placements`` of ``cache_defs`` says, its
     batch as the tokens'; otherwise this raises, since a cache is written
-    in place). Returns y summed over "model", laid out as the tokens, in
-    x's dtype."""
+    in place). A cache whole over a mesh dim that splits the tokens' batch
+    (serving on two pods: "kv_batch" is "data" alone, "act_batch" ("pod",
+    "data")) sets the layout: the layer runs on the tokens gathered over
+    that dim, as every rank holding the same cache rows must. Returns y
+    summed over "model", laid out as x's tokens, in x's dtype."""
     mesh = x.device_mesh
-    tokens = token_placements(x)
+    out = tokens = token_placements(x)
+    if cache is not None:
+        from torch.distributed.tensor import Replicate
+
+        lead = next(iter(cache.values())).placements
+        tokens = [Replicate() if name != "model" and not c.is_shard() else t
+                  for name, t, c in zip(_dim_names(mesh), tokens, lead)]
     keys = list(params)
     args = [(params[k], rank_placements(mesh, defs[k].logical))
             for k in keys] + [(x, tokens)]
@@ -436,7 +470,7 @@ def run_mixer(body, params, defs, x: torch.Tensor, cache=None,
 
     (y,) = per_rank(call, mesh, args, [partial_over_model(tokens, mesh)],
                     tokens)
-    return y.redistribute(mesh, tokens).to(x.dtype)
+    return y.redistribute(mesh, out).to(x.dtype)
 
 
 def run_serial(results: Sequence):
@@ -556,6 +590,29 @@ def place_tree(tree, defs):
     from repro_torch.runtime.elastic import reshard_tree
 
     return reshard_tree(tree, param_shardings(defs, mesh))
+
+
+def init_placed(defs, device: DeviceLike = None):
+    """The deterministic leaves (zeros, ones, const) of a ParamDef tree,
+    laid out by their specs under the current rules and mesh: on a
+    ``DeviceMesh`` of more than one rank each rank makes its own part
+    alone (``torch.distributed.tensor.full``), never the whole tensor;
+    plain tensors on ``device`` otherwise."""
+    mesh = current_mesh()
+    if (current_rules() is None or not is_device_mesh(mesh)
+            or mesh_size(mesh) == 1):
+        return tree_map(lambda d: d.initialize(None, device), defs,
+                        is_leaf=is_param_def)
+    from torch.distributed.tensor import full
+
+    rules = current_rules()
+
+    def leaf(d: ParamDef) -> torch.Tensor:
+        value = {"zeros": 0, "ones": 1, "const": d.scale}[d.init]
+        return full(d.shape, value, dtype=d.dtype, device_mesh=mesh,
+                    placements=placements(rules.spec_for(d.logical), mesh))
+
+    return tree_map(leaf, defs, is_leaf=is_param_def)
 
 
 def stack_defs(defs_list):

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import SMS
@@ -67,6 +68,26 @@ def kv_range(sq: int, skv: int, *, causal: bool, window: Optional[int],
     lo = 0 if window is None else max(0, q_offset - window + 1)
     hi = min(skv, q_offset + sq) if causal else skv
     return lo, max(lo, hi)
+
+
+def attention_pairs(sq: int, skv: int, *, causal: bool,
+                    window: Optional[int], q_offset: int) -> int:
+    """Unmasked (query, key) pairs of one head: the row at position
+    ``q_offset + i`` sees keys max(0, pos - window + 1) .. min(Skv - 1,
+    pos) (.. Skv - 1 without ``causal``)."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    lo = 0 if window is None else np.maximum(pos - window + 1, 0)
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_flops(q_shape, skv: int, *, causal: bool,
+                    window: Optional[int], q_offset: int) -> int:
+    """The kernel's FLOPs for q [B, Sq, H, D] against Skv keys: 2 D for
+    q·k and 2 D for p·v per unmasked pair (``attention_pairs``)."""
+    b, sq, h, d = q_shape
+    return 4 * b * h * d * attention_pairs(sq, skv, causal=causal,
+                                           window=window, q_offset=q_offset)
 
 
 def attention_plan(b: int, h: int, sq: int, skv: int, *, causal: bool,
@@ -114,6 +135,41 @@ def _operand(t: torch.Tensor, what: str) -> torch.Tensor:
     return t if t.stride(3) == 1 and aligned else t.contiguous()
 
 
+def _buffers(q: torch.Tensor, skv: int, causal: bool,
+             window: Optional[int], q_offset: int, return_lse: bool):
+    """The kernel's output, lse (or None), plan and the kv split's
+    partials (or None) for q [B, Sq, H, D] against Skv keys."""
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    plan = attention_plan(b, h, sq, skv, causal=causal, window=window,
+                          q_offset=q_offset)
+    part_o = part_ml = None
+    if plan.splits > 1:
+        part_o = torch.empty((plan.splits, b * h, sq, d), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((plan.splits, b * h, sq, 2),
+                              dtype=torch.float32, device=q.device)
+    return out, lse, plan, part_o, part_ml
+
+
+def flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None,
+                         q_offset: int = 0, return_lse: bool = False):
+    """:func:`flash_attention_cuda` on fake tensors (a dry run's): the
+    same buffers, the kv split's partials among them, and nothing
+    launched; the outputs hold no values. (A fake tensor has no address:
+    an operand that is not D-contiguous is copied, as the wrapper does.)"""
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    out, lse, *_ = _buffers(q, k.shape[1], causal, window, q_offset,
+                            return_lse)
+    return (out, lse) if return_lse else out
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
@@ -142,17 +198,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > _MAX_BATCH_HEADS:
         raise ValueError(f"B * H = {b * h} above {_MAX_BATCH_HEADS}")
     scale = d ** -0.5 if scale is None else float(scale)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    plan = attention_plan(b, h, sq, skv, causal=causal, window=window,
-                          q_offset=q_offset)
-    part_o = part_ml = None
-    if plan.splits > 1:
-        part_o = torch.empty((plan.splits, b * h, sq, d), dtype=torch.float32,
-                             device=q.device)
-        part_ml = torch.empty((plan.splits, b * h, sq, 2),
-                              dtype=torch.float32, device=q.device)
+    out, lse, plan, part_o, part_ml = _buffers(q, skv, causal, window,
+                                               q_offset, return_lse)
     lib = _mq.load()
     code = _mq.launch(
         lib.flash_attention_fwd, q.device, q.data_ptr(), k.data_ptr(),

@@ -19,7 +19,9 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch import counts
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mx_fused as _mf
 from repro_torch.kernels import mx_matmul as _mm
@@ -302,6 +304,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(q, k, v, path, opts, lse):
         if path == "cuda":
             return _fa.flash_attention_cuda(q, k, v, return_lse=lse, **opts)
+        if path == "fake":
+            return _fa.flash_attention_fake(q, k, v, return_lse=lse, **opts)
         return _ref.flash_attention_ref(q, k, v, return_lse=lse, **opts)
 
     @staticmethod
@@ -346,10 +350,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``return_lse``: (out, lse [B, Sq, H] fp32), the rows' log-sum-exp from
     the kernel (-inf for a row with no key; not differentiable). The
     Pallas tile sizes ``qb`` / ``kvb`` and ``interpret`` are TPU tiling and
-    are not ported."""
+    are not ported.
+
+    Fake tensors (a dry run's, ``launch/counting.py``) take the fake path:
+    outputs of the kernel's shapes and dtypes, nothing run and nothing
+    counted in :func:`kernel_stats`. Under a counter the call counts as
+    the kernel (``counts.kernel``): its FLOPs and bytes, not those of the
+    plain version's operations."""
     path = _shared_path(q, k, v)
+    if path != "cuda" and isinstance(q, FakeTensor):
+        path = "fake"
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                 q_offset=q_offset)
-    out = _FlashAttention.apply(q, k, v, path, opts, return_lse)
-    _count("flash_attention", path)
+    if counts.active():
+        out = _counted_attention(q, k, v, path, opts, return_lse)
+    else:
+        out = _FlashAttention.apply(q, k, v, path, opts, return_lse)
+    if path != "fake":
+        _count("flash_attention", path)
     return out
+
+
+def _counted_attention(q, k, v, path: str, opts: dict, return_lse: bool):
+    """:func:`flash_attention`'s call under the installed counter: it
+    counts as the kernel, its FLOPs (``attention_flops``), q, k and v read
+    and the output (and lse) written."""
+    b, sq, h, _ = q.shape
+    flops = _fa.attention_flops(tuple(q.shape), k.shape[1],
+                                causal=opts["causal"], window=opts["window"],
+                                q_offset=opts["q_offset"])
+    nbytes = (2 * q.numel() * q.element_size()
+              + k.numel() * k.element_size() + v.numel() * v.element_size()
+              + (4 * b * sq * h if return_lse else 0))
+    with counts.kernel("flash_attention", flops, nbytes, (q, k, v)):
+        return _FlashAttention.apply(q, k, v, path, opts, return_lse)

@@ -8,8 +8,10 @@ shapes and dtypes with no storage, for the dry run. ``fn`` runs eagerly
 on real tensors laid out by ``in_shardings`` (plain tensors on one rank,
 DTensors over more) inside ``use_rules(rules, mesh)``; it updates the
 train state and the caches in place, where the reference donates them.
-The reference's ``lower_bundle`` (jit + lower) is the dry run's, ROADMAP
-item 10d.
+:func:`trace_bundle` is the dry run's counterpart of the reference's
+``lower_bundle`` (jit + lower): it runs ``fn`` once on fake tensors laid
+out by ``in_shardings`` and returns what one rank's step costs
+(``launch/counting.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.runtime.elastic import reshard_tree, shardings_for
 from repro_torch.training.grad import microbatched_grads
 from repro_torch.training.optimizer import OptimizerConfig, apply_updates
 from repro_torch.training.train_state import TrainState, train_state_specs
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 DEFAULT_MICROBATCHES = {"train": 16}
 
@@ -263,3 +265,69 @@ def build_bundle(arch: ArchConfig, shape: ShapeConfig, mesh,
     if shape.kind == "prefill":
         return build_prefill_bundle(arch, shape, mesh, rules, **kw)
     return build_decode_bundle(arch, shape, mesh, rules, **kw)
+
+
+# ------------------------------------------------------------------ dry run
+def bundle_args(bundle: StepBundle, make, t: Optional[int] = None):
+    """The step's arguments: each meta leaf of ``abstract_args`` made whole
+    by ``make(meta)`` and laid out by its ``in_shardings`` leaf (as it
+    stands where the bundle has no shardings); the train state's step is
+    0 and a decode batch's ``t`` the int ``t``."""
+    def leaf(meta, sharding):
+        return make(meta) if sharding is None else sharding.place(make(meta))
+
+    def tree(abstract, shardings):
+        if shardings is None:
+            return tree_map(make, abstract)
+        return tree_map(leaf, abstract, shardings)
+
+    args = []
+    for i, abstract in enumerate(bundle.abstract_args):
+        sh = None if bundle.in_shardings is None else bundle.in_shardings[i]
+        if isinstance(abstract, TrainState):
+            sh = sh or TrainState(None, None, None)
+            args.append(TrainState(tree(abstract.params, sh.params),
+                                   tree(abstract.opt_state, sh.opt_state),
+                                   0))
+        elif isinstance(abstract, dict) and "t" in abstract:
+            rest = {k: v for k, v in abstract.items() if k != "t"}
+            placed = tree(rest, None if sh is None else {
+                k: sh[k] for k in rest})
+            args.append({**placed, "t": t})
+        else:
+            args.append(tree(abstract, sh))
+    return tuple(args)
+
+
+def trace_bundle(bundle: StepBundle, mesh, rules: ShardingRules, *,
+                 t: Optional[int] = None, multiply: bool = True):
+    """One rank's counts of the step (``counting.Counts``): ``fn`` run once
+    under ``FakeTensorMode`` on fake tensors laid out by
+    ``in_shardings`` over ``mesh`` (a ``DeviceMesh`` over a fake process
+    group of the mesh's size, ``launch/dryrun.py``; or of one rank),
+    inside ``use_rules(rules, mesh)``. The repeated units are multiplied
+    (``counts.repeat``) unless ``multiply`` is False. Nothing runs on a
+    device; a decode step is traced at position ``t``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.counting import Counter, tensor_bytes
+
+    with FakeTensorMode(allow_non_fake_inputs=True), use_rules(rules, mesh):
+        args = bundle_args(bundle, lambda m: torch.empty(
+            m.shape, dtype=m.dtype), t)
+        counter = Counter(multiply)
+        with counter:
+            result = bundle.fn(*args)
+        found = counter.finish(result)
+        found.arg_bytes = sum(tensor_bytes(x) for x in arg_leaves(args))
+    return found
+
+
+def arg_leaves(args):
+    """The tensors among a step's arguments (a train state's leaves)."""
+    leaves = []
+    for a in args:
+        tree = a.as_tree() if isinstance(a, TrainState) else a
+        leaves += [x for x in tree_leaves(tree)
+                   if isinstance(x, torch.Tensor)]
+    return leaves

@@ -60,6 +60,7 @@ from repro_torch.distributed import (
     constrain,
     current_mesh,
     current_rules,
+    gathered,
     is_dtensor,
     local_range,
     mesh_axis_size,
@@ -300,6 +301,26 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # --------------------------------------------------------------- full forward
+def split_heads(t: torch.Tensor, n: int, dh: int, logical: str):
+    """t [B, S, n·dh] -> [B, S, n, dh] laid out as (act_batch, act_seq,
+    ``logical``, None). A DTensor whose fused dim is split over a number
+    of ranks that does not divide the n heads (gemma2-2b's 8 heads over a
+    model axis of 16) is gathered on that dim first: DTensor cannot
+    unflatten a split that cuts a head."""
+    from torch.distributed.tensor import Shard
+
+    b, s, _ = t.shape
+    if is_dtensor(t):
+        ranks = 1
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and p.dim == 2:
+                ranks *= t.device_mesh.size(i)
+        if n % ranks:
+            t = constrain(t, "act_batch", "act_seq", None)
+    return constrain(t.reshape(b, s, n, dh), "act_batch", "act_seq", logical,
+                     None)
+
+
 def attention_forward(params, x: torch.Tensor, cfg: ArchConfig,
                       layer_idx: int, *, positions: torch.Tensor, mode: str,
                       cache: Optional[dict] = None,
@@ -320,15 +341,15 @@ def attention_forward(params, x: torch.Tensor, cfg: ArchConfig,
     dh = cfg.resolved_head_dim
     b, s, _ = x.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
-    q = constrain(x @ params["wq"], "act_batch", "act_seq", "heads_fused")
-    k = constrain(x @ params["wk"], "act_batch", "act_seq", "kv_fused")
-    v = constrain(x @ params["wv"], "act_batch", "act_seq", "kv_fused")
-    q = constrain(q.reshape(b, s, h, dh), "act_batch", "act_seq", "heads",
-                  None)
-    k = constrain(k.reshape(b, s, kvh, dh), "act_batch", "act_seq",
-                  "kv_heads", None)
-    v = constrain(v.reshape(b, s, kvh, dh), "act_batch", "act_seq",
-                  "kv_heads", None)
+    q = constrain(x @ gathered(params["wq"], "embed", "heads_fused"),
+                  "act_batch", "act_seq", "heads_fused")
+    k = constrain(x @ gathered(params["wk"], "embed", "kv_fused"),
+                  "act_batch", "act_seq", "kv_fused")
+    v = constrain(x @ gathered(params["wv"], "embed", "kv_fused"),
+                  "act_batch", "act_seq", "kv_fused")
+    q = split_heads(q, h, dh, "heads")
+    k = split_heads(k, kvh, dh, "kv_heads")
+    v = split_heads(v, kvh, dh, "kv_heads")
 
     if cfg.pos == "rope":
         if rope is None:
@@ -360,7 +381,7 @@ def attention_forward(params, x: torch.Tensor, cfg: ArchConfig,
 
     out = constrain(out.reshape(b, s, h * dh), "act_batch", "act_seq",
                     "heads_fused")
-    y = out @ params["wo"]
+    y = out @ gathered(params["wo"], "heads_fused", "embed")
     return y, new_cache
 
 

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ParamDef, constrain
+from repro_torch.distributed import ParamDef, constrain, gathered
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -106,13 +106,15 @@ def mlp_defs(cfg: ArchConfig):
 
 def mlp_forward(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x [B, S, D] -> [B, S, D]."""
+    up = gathered(params["w_up"], "embed", "ff")
+    down = gathered(params["w_down"], "ff", "embed")
     if cfg.mlp in ("swiglu", "geglu"):
-        g = x @ params["w_gate"]
-        u = x @ params["w_up"]
+        g = x @ gathered(params["w_gate"], "embed", "ff")
+        u = x @ up
         act = (F.silu(g) if cfg.mlp == "swiglu"
                else F.gelu(g, approximate="tanh"))
         h = constrain(act * u, "act_batch", "act_seq", "ff")
-        return h @ params["w_down"]
-    h = F.gelu(x @ params["w_up"] + params["b_up"], approximate="tanh")
+        return h @ down
+    h = F.gelu(x @ up + params["b_up"], approximate="tanh")
     h = constrain(h, "act_batch", "act_seq", "ff")
-    return h @ params["w_down"] + params["b_down"]
+    return h @ down + params["b_down"]

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import counts
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import (
     ParamDef,
@@ -164,7 +165,8 @@ def _chunk_loop(params, xc: torch.Tensor, mode: str, proj=None):
     remat = mode == "train" and torch.is_grad_enabled()
     h = xc.new_zeros((b, di, params["a_log"].shape[1]), dtype=torch.float32)
     ys = []
-    for c in range(0, s, csz):
+    for i in counts.repeat(s // csz, ys):
+        c = i * csz
         part = (xc[:, c:c + csz],) + (() if proj is None
                                       else (proj[:, c:c + csz],))
         if remat:
@@ -173,7 +175,7 @@ def _chunk_loop(params, xc: torch.Tensor, mode: str, proj=None):
         else:
             h, y_c = _chunk(params, h, *part)
         ys.append(y_c)
-    return h, torch.cat(ys, 1)
+    return h, torch.cat(counts.full(ys, s // csz), 1)
 
 
 def mamba_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,

@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import counts
 from repro_torch.configs.base import (
     ArchConfig,
     MIXER_ATTENTION,
@@ -46,8 +47,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import (
     ParamDef,
     constrain,
+    gathered,
     init_params,
-    place_tree,
+    init_placed,
+    is_dtensor,
+    local_range,
     stack_defs,
 )
 from repro_torch.models import attention as attn
@@ -111,7 +115,10 @@ def _block_forward(bp, x, cfg: ArchConfig, pos: int, *, mode: str,
         y, _ = _MIXERS[mixer][1](bp["mixer"], h, cfg, mode=mode, cache=cache)
     if cfg.post_block_norm:
         y = apply_norm(bp["post_norm1"], y, cfg)
-    x = x + y
+    # The mixer's out-projection leaves a partial sum over "model": it is
+    # reduced here, before the FFN's norm; left partial, every rank would
+    # run the whole FFN width on its term.
+    x = constrain(x + y, "act_batch", "act_seq", "act_embed")
     aux = None
     if "ffn" in bp:
         h = apply_norm(bp["norm2"], x, cfg)
@@ -124,6 +131,39 @@ def _block_forward(bp, x, cfg: ArchConfig, pos: int, *, mode: str,
             y = apply_norm(bp["post_norm2"], y, cfg)
         x = x + y
     return constrain(x, "act_batch", "act_seq", "act_embed"), aux
+
+
+def argmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``x.argmax(-1)``, the first index of the largest value. Over a
+    DTensor split on its last dim, each rank takes its own part's first
+    largest and its offset (``local_range``), and two reductions over the
+    dims that split it (the largest value, then the least index holding
+    it) give the same index: DTensor's own argmax works its offsets out
+    with tensors, which a dry run's fake tensors cannot read."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    last = x.ndim - 1
+    split = [i for i, p in enumerate(x.placements if is_dtensor(x) else ())
+             if isinstance(p, Shard) and p.dim % x.ndim == last]
+    if not split:
+        return x.argmax(-1)
+    mesh = x.device_mesh
+    off, _ = local_range(x, last)
+    vals, idx = x.to_local().max(-1)
+
+    def reduced(local, op):
+        pls = [Partial(op) if i in split else p
+               for i, p in enumerate(x.placements)]
+        whole = [Replicate() if i in split else p
+                 for i, p in enumerate(x.placements)]
+        return DTensor.from_local(local, mesh, pls).redistribute(
+            mesh, whole).to_local()
+
+    top = reduced(vals, "max")
+    cand = torch.where(vals == top, idx + off, x.shape[-1])
+    pls = [Replicate() if i in split else p
+           for i, p in enumerate(x.placements)]
+    return DTensor.from_local(reduced(cand, "min"), mesh, pls)
 
 
 def _unbind(tree, n: int):
@@ -196,7 +236,7 @@ class LMModel:
         if cfg.input_mode == "embeddings":
             x = inputs.to(param_dtype(cfg))
         else:
-            x = params["embed"][inputs.long()]
+            x = gathered(params["embed"], "vocab", "embed")[inputs.long()]
         if cfg.embed_scale:
             x = x * math.sqrt(cfg.d_model)
         if cfg.pos == "learned":
@@ -247,7 +287,7 @@ class LMModel:
             return x, aux
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for g in range(n):
+        for g in counts.repeat(n):
             if remat and mode == "train" and torch.is_grad_enabled():
                 x, a = checkpoint(group_body, x, g, use_reentrant=False)
             else:
@@ -260,8 +300,10 @@ class LMModel:
         """x [B,S,D] -> [B,S,nH,V] in the params' dtype. The tied head
         multiplies by ``embed`` transposed as a view (no copy)."""
         if self.cfg.tie_embeddings:
-            return (x @ params["embed"].t())[:, :, None]
-        return torch.einsum("bsd,hdv->bshv", x, params["head"])
+            return (x @ gathered(params["embed"], "vocab", "embed").t())[
+                :, :, None]
+        return torch.einsum("bsd,hdv->bshv", x,
+                            gathered(params["head"], None, "embed", "vocab"))
 
     def head_matrix(self, params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -288,7 +330,7 @@ class LMModel:
         picked = constrain(torch.gather(logits, -1, lc[..., None]),
                            "act_batch", "act_seq", None, None)[..., 0]
         nll = (lse - picked).mean(-1) * mc
-        correct = (logits.argmax(-1) == lc).all(-1) * mc
+        correct = (argmax_last(logits) == lc).all(-1) * mc
         return nll.sum(), correct.sum()
 
     def loss(self, params, batch, *, remat: bool = True):
@@ -308,7 +350,8 @@ class LMModel:
         head = {k: params[k] for k in ("embed", "head") if k in params}
         nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         correct = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c in range(0, s, csz):
+        for i in counts.repeat(s // csz):
+            c = i * csz
             args = (head, x[:, c:c + csz], labels[:, c:c + csz],
                     mask[:, c:c + csz])
             if torch.is_grad_enabled():
@@ -356,11 +399,10 @@ class LMModel:
 
     def init_caches(self, batch: int, capacity: int):
         """Empty caches on the model's device, laid out by their specs
-        under the current rules and mesh (``distributed.place_tree``)."""
-        defs = self.cache_defs(batch, capacity)
-        return place_tree(tree_map(lambda d: d.initialize(None, self.device),
-                                   defs, is_leaf=lambda d: isinstance(
-                                       d, ParamDef)), defs)
+        under the current rules and mesh, each rank making its own part
+        alone (``distributed.init_placed``: a whole prefill cache is many
+        times a card's memory)."""
+        return init_placed(self.cache_defs(batch, capacity), self.device)
 
 
 def make_model(cfg: ArchConfig, device: DeviceLike = None) -> LMModel:

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import counts
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import (
     ParamDef,
@@ -156,7 +157,8 @@ def _mlstm_recurrence(q, k, v, lf, li, *, mode: str, cache=None):
     C = q.new_zeros((b, nh, dh, dh))
     n = q.new_zeros((b, nh, dh))
     hs = []
-    for c in range(0, s, csz):
+    for i in counts.repeat(s // csz, hs):
+        c = i * csz
         part = [t[:, c:c + csz] for t in (q, k, v, lf, li)]
         if remat:
             C, n, h_c = checkpoint(_mlstm_chunk, C, n, *part,
@@ -167,7 +169,7 @@ def _mlstm_recurrence(q, k, v, lf, li, *, mode: str, cache=None):
     if mode == "prefill" and cache is not None:
         cache["C"].copy_(C)
         cache["n"].copy_(n)
-    return torch.cat(hs, 1)
+    return torch.cat(counts.full(hs, s // csz), 1)
 
 
 def mlstm_forward(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
@@ -339,13 +341,13 @@ def _slstm_recurrence(r_all, gx, *, mode: str, cache=None):
     zeros = gx.new_zeros((b, nh, dh))
     state = (zeros, zeros, zeros, torch.full_like(zeros, -1e9))
     outs = []
-    for t in range(s):
+    for t in counts.repeat(s, outs):
         state = _slstm_step(r_all, state, gx[:, t], dh)
         outs.append(state[2])
     if mode == "prefill" and cache is not None:
         for key, new in zip(("c", "n", "h", "m"), state):
             cache[key].copy_(new)
-    return torch.stack(outs, 1)  # [B, S, H, dh]
+    return torch.stack(counts.full(outs, s), 1)  # [B, S, H, dh]
 
 
 def _slstm_up(params, hs: torch.Tensor, x: torch.Tensor, nh: int):

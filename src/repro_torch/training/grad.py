@@ -14,6 +14,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import counts
 from repro_torch.distributed import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -70,7 +71,7 @@ def microbatched_grads(loss_fn: Callable, params, batch,
     if constrain_grads is not None:
         acc = constrain_grads(acc)
     loss_acc, metrics_acc = None, None
-    for i in range(num_microbatches):
+    for i in counts.repeat(num_microbatches):
         mb = tree_map(lambda x: split(x, i), batch)
         loss, metrics, grads = _value_and_grad(loss_fn, params, mb)
         if constrain_grads is not None:
