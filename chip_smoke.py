@@ -234,6 +234,24 @@ exits non-zero without printing a result:
    every rank's routing equal to it, the replicated recurrent state equal
    on every rank bit for bit; times of the unsharded layer and of the R
    bodies in turn.
+17. dryrun — the dry run against the card (``dryrun_phase``): gemma2-2b's
+   bf16 prefill and the train driver's step traced on a one-rank mesh and
+   run: FLOPs and argument bytes equal, the measured peak within
+   ``DRY_PEAK`` of the predicted, the roofline share; then
+   ``DRY_PRODUCTION``'s cells on a fake (16, 16) mesh.
+18. experiments — the paper's figure experiments and the quickstart
+   (``experiments_phase``): Table III's six models at published widths on
+   the card, ResNet34 and WideResNet101 each with one MX6 fill (bitwise the
+   plain version) and one forward of 8 frames at 224 px (the first 2
+   within ``EXP_FORWARD_RMS_SHARE`` of the CPU's forward); Fig. 3; Fig. 9
+   on S1 at the fast sizes twice from fresh pretraining, bit for bit; Figs.
+   11 (both pairs, so the ViTs' attention kernel) and 12 at the fast
+   sizes; ``examples/quickstart_torch.py``'s three demos (the MX matmul
+   through the quantize kernel and the unfused MX GEMM, held elementwise
+   to its plain version within phase 6's limits; reduced gemma2-2b
+   through the attention kernel; a DC-ST session). Every kernel call is
+   "cuda", and the quantize, dequantize, MX GEMM and attention kernels
+   each launch.
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -4179,6 +4197,272 @@ def dryrun_phase(dev="cuda") -> dict:
     return out
 
 
+# Phase 18: the paper's figure experiments and the quickstart. Table III's
+# models that no other phase runs take one MX6 fill and one forward of
+# EXP_BATCH frames at their published width.
+EXP_BATCH = 8
+EXP_FIRST_RUN = ("resnet34", "wideresnet101")
+# The first EXP_CPU_FRAMES frames of each first-run forward are held to the
+# same forward on the CPU from the same serving tree: both fp32 (TF32 off),
+# so they differ only by summation order, RMS(card - cpu) <=
+# EXP_FORWARD_RMS_SHARE x RMS(cpu), as for the fp32 attention.
+EXP_CPU_FRAMES = 2
+EXP_FORWARD_RMS_SHARE = 2.0 ** -12
+EXP_KERNELS = ("mx_quantize", "mx_dequantize", "mx_matmul",
+               "flash_attention")  # each launched, all "cuda", in phase 18
+
+
+def exp_counted(part: str, fn, out: dict):
+    """Run ``fn`` with the launch counts and kernel_stats set to 0 just
+    before it, and keep its launches, kernel_stats and wall in ``out``
+    under ``part``; a call on the plain path fails the phase. Returns what
+    ``fn`` returns."""
+    import torch
+
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    mxq.reset_launch_counts()
+    ops.reset_kernel_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {op: n for op, n in mxq.launch_counts().items() if n}
+    stats = ops.kernel_stats()
+    plain = {op: paths for op, paths in stats.items() if paths.get("plain")}
+    if plain:
+        raise AssertionError(f"experiments {part}: calls on the plain path: "
+                             f"{plain}")
+    out["launches"][part] = launches
+    out["kernel_stats"][part] = stats
+    out["wall_s"][part] = wall
+    log("experiments", f"{part}: {wall:.2f} s, launches {launches}")
+    return res
+
+
+def exp_rows(rows) -> None:
+    for name, us, derived in rows:
+        log("experiments", f"{name},{us:.3f},{derived}")
+
+
+def table3_first_run(built, dev) -> dict:
+    """ResNet34 and WideResNet101 (``EXP_FIRST_RUN``), built at published
+    width by Table III: one MX6 fill each through its kernel's serving
+    cache (one quantize and one dequantize launch, every quantized leaf
+    bitwise the plain version's) and one forward of ``EXP_BATCH`` frames
+    at 224 px (finite logits of the full class count, the first
+    ``EXP_CPU_FRAMES`` within ``EXP_FORWARD_RMS_SHARE`` of the same
+    forward on the CPU)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.estimator import DaCapoEstimator
+    from repro_torch.core.kernel import InferenceKernel, LabelingKernel
+    from repro_torch.core.mx import _quantizable
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.registry import make_vision_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    x = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(EXP_BATCH, 224, 224, 3)).astype(np.float32)).to(dev)
+    out = {}
+    for name, cls in zip(EXP_FIRST_RUN, (InferenceKernel, LabelingKernel)):
+        model, params, _ = built[name]
+        cfg = model.cfg
+        kern = cls(model, cfg, DaCapoEstimator(), apply_mx=True, device=dev)
+        before = mxq.launch_counts()
+        serving = kern.serving_cache.get(params, "mx6")
+        torch.cuda.synchronize()
+        after = mxq.launch_counts()
+        fill = {op: after[op] - before[op] for op in after
+                if after[op] != before[op]}
+        if fill != {"mx_quantize": 1, "mx_dequantize": 1}:
+            raise AssertionError(f"{name}: an MX6 fill launched {fill}")
+        plain = tree_map(
+            lambda p: ref.mx_quant_dequant_ref(
+                ops._pad_last(p.reshape(-1, p.shape[-1]), 16)[0],
+                "mx6")[:, : p.shape[-1]].reshape(p.shape)
+            if _quantizable(p, 1024) else p, params)
+        for p, s, want in zip(tree_leaves(params), tree_leaves(serving),
+                              tree_leaves(plain)):
+            if _quantizable(p, 1024) and not bitwise(s, want):
+                raise AssertionError(f"{name}: kernel-filled serving leaf "
+                                     "!= plain")
+        del plain
+        with torch.no_grad():
+            logits = kern._run_apply(serving, x)
+            on_cpu = make_vision_model(cfg, "cpu").apply(
+                tree_map(lambda p: p.cpu(), serving),
+                x[:EXP_CPU_FRAMES].cpu())
+        if logits.shape != (EXP_BATCH, cfg.num_classes) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: bad logits {logits.shape}")
+        share = float((logits[:EXP_CPU_FRAMES].cpu() - on_cpu).square()
+                      .mean().sqrt() / on_cpu.square().mean().sqrt())
+        if not share <= EXP_FORWARD_RMS_SHARE:
+            raise AssertionError(
+                f"{name}: card forward vs the CPU's: RMS share {share:.3g} "
+                f"> {EXP_FORWARD_RMS_SHARE:.3g}")
+        n = sum(p.numel() for p in tree_leaves(params))
+        out[name] = {"params": n, "fill_launches": fill,
+                     "logits_abs_max": float(logits.abs().max()),
+                     "cpu_rms_share": share}
+        log("experiments", f"{name} ({n / 1e6:.1f} M params, 224 px): one "
+            f"MX6 fill {fill}, bitwise the plain version; forward of "
+            f"{EXP_BATCH} frames: finite logits, |max| "
+            f"{out[name]['logits_abs_max']:.3f}; the first "
+            f"{EXP_CPU_FRAMES} vs the CPU's forward: RMS share {share:.3g} "
+            f"(limit {EXP_FORWARD_RMS_SHARE:.3g})")
+        del serving, kern
+    return out
+
+
+def quickstart_mx_check(mx: dict) -> dict:
+    """The quickstart's MX demo (``mx_quantize`` and ``mx_gemm_mx`` at
+    x [64, 256] @ w [256, 64]) held, at each precision, to the plain
+    ``mx_matmul_ref`` of the same operands quantized by the plain
+    quantize, elementwise within phase 6's two limits
+    (``ref.gemm_error_limits``). Returns each precision's max |err|."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    x, w = mx["x"], mx["w"].T.contiguous()
+    max_err = {}
+    for prec, out in mx["out"].items():
+        plain = ref.mx_matmul_ref(ref.mx_quantize_ref(x, prec),
+                                  ref.mx_quantize_ref(w, prec))
+        worst, typical = ref.gemm_error_limits(
+            ref.mx_quant_dequant_ref(x, prec),
+            ref.mx_quant_dequant_ref(w, prec))
+        err = (out - plain).abs()
+        tiny = torch.finfo(torch.float32).tiny
+        r_worst = float((err / worst.clamp_min(tiny)).max())
+        r_typical = float((err / typical.clamp_min(tiny)).max())
+        if (out.shape != plain.shape or not bool(torch.isfinite(out).all())
+                or not r_worst <= 1 or not r_typical <= 1):
+            raise AssertionError(
+                f"quickstart mx_matmul {prec}: kernel vs plain outside the "
+                f"limits (max err {float(err.max())}, {r_worst:.3g} x the "
+                f"worst and {r_typical:.3g} x the typical limit)")
+        max_err[prec] = float(err.max())
+        log("experiments", f"quickstart mx_matmul {prec} vs plain: max "
+            f"|err| {max_err[prec]:.3g}, {r_worst:.3g} x the worst and "
+            f"{r_typical:.3g} x the typical limit")
+    return max_err
+
+
+def fig9_differences(first, second) -> list:
+    """What differs between two Fig. 9 runs (empty when they agree bit for
+    bit): each system's phase log, drift events, accuracy timeline and
+    average accuracy."""
+    diffs = []
+    for key, (a, _) in first.items():
+        b = second[key][0]
+        for field in ("phase_log", "drift_events", "accuracy_timeline",
+                      "avg_accuracy"):
+            if getattr(a, field) != getattr(b, field):
+                diffs.append(f"{key}: {field} differs")
+    return diffs
+
+
+def experiments_phase(dev="cuda") -> dict:
+    """Phase 18: the paper's figure experiments (``repro_torch.experiments``)
+    and the quickstart (``examples/quickstart_torch.py``) on the card:
+    Table III's six models at published widths (``table3_first_run`` for
+    the two no other phase runs), Fig. 3, Fig. 9 on S1 at the fast sizes
+    twice (each from a fresh pretraining; the two runs bit for bit), Figs.
+    11 and 12 at the fast sizes, and the quickstart's three demos. Each
+    part's launches are counted from 0; every kernel call must be on the
+    "cuda" path and each of ``EXP_KERNELS`` launched. Returns the
+    readings."""
+    import math
+
+    import torch
+
+    from repro_torch.experiments import (common, fig3_flops, fig9_accuracy,
+                                         fig11_temporal, fig12_extreme,
+                                         table3_models)
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import quickstart_torch
+
+    out = {"launches": {}, "kernel_stats": {}, "wall_s": {}}
+    built = exp_counted("table3_build", lambda: table3_models.build(dev),
+                        out)
+    out["table3"] = table3_models.rows_of(built)
+    exp_rows(out["table3"])
+    out["first_run"] = exp_counted(
+        "table3_first_run", lambda: table3_first_run(built, dev), out)
+    del built
+    torch.cuda.empty_cache()
+    out["fig3"] = fig3_flops.run()
+    exp_rows(out["fig3"])
+
+    runs = []
+    for i in range(2):
+        common.forget_pretrained()
+        runs.append(exp_counted(
+            f"fig9_run{i + 1}",
+            lambda: fig9_accuracy.sessions(True, dev, ("S1",)), out))
+    diffs = fig9_differences(*runs)
+    if out["launches"]["fig9_run1"] != out["launches"]["fig9_run2"]:
+        diffs.append(f"launches {out['launches']['fig9_run1']} != "
+                     f"{out['launches']['fig9_run2']}")
+    if diffs:
+        raise AssertionError(f"Fig. 9 does not repeat: {diffs}")
+    out["fig9"] = fig9_accuracy.rows_of(runs[0], ("S1",))
+    exp_rows(out["fig9"])
+    log("experiments", f"Fig. 9 on S1, two runs from fresh pretraining: "
+        f"bit for bit (phase logs, drift events, timelines, accuracies)")
+    out["fig11"] = exp_counted(
+        "fig11", lambda: fig11_temporal.run(True, dev), out)
+    exp_rows(out["fig11"])
+    out["fig12"] = exp_counted(
+        "fig12", lambda: fig12_extreme.run(True, dev), out)
+    exp_rows(out["fig12"])
+    for rows in (out["fig9"], out["fig11"], out["fig12"]):
+        for name, _, derived in rows:
+            if "nan" in derived:
+                raise AssertionError(f"{name}: {derived}")
+
+    quick = exp_counted("quickstart", lambda: quickstart_torch.run(dev), out)
+    mx_vs_plain = quickstart_mx_check(quick["mx"])
+    errors = quick["mx"]["rel_err"]
+    if not (all(math.isfinite(e) for e in errors.values())
+            and errors["mx4"] > errors["mx6"] > errors["mx9"]):
+        raise AssertionError(f"quickstart MX errors {errors}")
+    logits = quick["lm"]["logits"]
+    if not (math.isfinite(quick["lm"]["loss"])
+            and bool(torch.isfinite(logits).all())
+            and tuple(logits.shape) == (2, logits.shape[-1])):
+        raise AssertionError(f"quickstart LM: loss {quick['lm']['loss']}, "
+                             f"logits {tuple(logits.shape)}")
+    cl = quick["cl"]
+    if not cl.phase_log or not math.isfinite(cl.avg_accuracy):
+        raise AssertionError(f"quickstart session: {len(cl.phase_log)} "
+                             f"phases, accuracy {cl.avg_accuracy}")
+    out["quickstart"] = {"mx_rel_err": errors,
+                         "mx_max_abs_err_vs_plain": mx_vs_plain,
+                         "lm_loss": quick["lm"]["loss"],
+                         "cl_avg_accuracy": cl.avg_accuracy,
+                         "cl_drift_events": cl.drift_events,
+                         "cl_phases": len(cl.phase_log)}
+    total = {}
+    for part in out["launches"].values():
+        for op, n in part.items():
+            total[op] = total.get(op, 0) + n
+    missing = [op for op in EXP_KERNELS if not total.get(op)]
+    if missing:
+        raise AssertionError(f"experiments: {missing} never launched "
+                             f"({total})")
+    out["launches_total"] = total
+    return out
+
+
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
 GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
     "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
@@ -4808,6 +5092,20 @@ def main() -> None:
         {"cells": dry["cells"], "launches": dry["launches"]}, default=float),
         flush=True)
 
+    # ------------------------------------------------------ 18 experiments
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    exp = experiments_phase()
+    log("experiments", f"phase done in {time.perf_counter() - t0:.2f} s")
+    print("[experiments] summary " + json.dumps(
+        {key: exp[key] for key in ("launches", "wall_s", "first_run",
+                                   "quickstart")}, default=float),
+        flush=True)
+
+    def launches_experiments(op: str) -> dict:
+        return {part: counts.get(op, 0)
+                for part, counts in exp["launches"].items()}
+
     kernels = []
     for name, ms, plain_ms, replaces in (
             ("mx_quantize", biggest["q_ms"], biggest["q_plain_ms"],
@@ -4830,10 +5128,16 @@ def main() -> None:
                                for part, counts in fleet_launches.items()},
             "launches_manager": {part: counts[name] for part, counts in
                                  manager_launches.items()},
+            "launches_experiments": launches_experiments(name),
             "trees": [{key: row[key] for key in (
                 "tree", "leaves", "elements", "launches", "bound_ms",
                 "q_ms" if name == "mx_quantize" else "dq_ms") if key in row}
                 for row in tree_rows]})
+    for row in gemm_rows:
+        if row["name"] == "mx_matmul":
+            row["launches_experiments"] = launches_experiments("mx_matmul")
+            row["max_abs_err_quickstart"] = exp["quickstart"][
+                "mx_max_abs_err_vs_plain"]
     kernels += gemm_rows
     main_case = attention_rows[0]
     kernels.append({
@@ -4863,6 +5167,7 @@ def main() -> None:
         "launches_sharding": sharding["launches"],
         "launches_mixer_ranks": ranks["launches"],
         "launches_dryrun": dry["launches"],
+        "launches_experiments": launches_experiments("flash_attention"),
         "lse_max_abs_err": max(row["lse_max_abs_err"] for row in
                                attention_rows
                                if row["lse_max_abs_err"] is not None),

@@ -45,6 +45,14 @@ fake process group) or real (a run on the card, or on a gloo world).
   that is live at once, ``output_bytes`` what the step's result holds.
   The arguments are counted apart (``arg_bytes``).
 
+The counter knows a storage by an id it hands out on first sight, never
+by its address: a freed storage's address is soon another's, and an entry
+keyed on it would pass to the new storage (a temporary scalar read in a
+fusion hid the next one made at its address, so a count depended on the
+allocator's state). A weak reference on each storage seen drops every
+entry of its id when it is freed. An autograd node is known by an id kept
+in its metadata, as its weight is.
+
 Repeated units (``counts.repeat``) are multiplied, not unrolled, when the
 counter is made with ``multiply``: of a loop of n > 4 iterations the first
 two, a third and the last run, and the third's counts weigh n - 3, as the
@@ -87,6 +95,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import math
 import weakref
 from typing import Dict, List, Optional
@@ -125,6 +134,8 @@ RUN = 2  # iterations of a multiplied loop run before the weighted one
 _TAG = "dryrun_weight"  # autograd node metadata: its weight
 _MARKS = "dryrun_iterations"  # ... and the loop iterations that made it
 _STANDS_IN = "dryrun_stands_in"  # ... and that it fills missing gradients
+_NODE = "dryrun_node"  # ... and its id (``_node_key``)
+_NODE_IDS = itertools.count()
 _SHAPE_ONLY = torch.ops.aten.empty_strided.default  # DTensor's stand-ins
 _NO_TRAFFIC = (torch.ops.aten.empty.memory_format,
                torch.ops.aten.empty_like.default,
@@ -219,11 +230,6 @@ def _storage(t: torch.Tensor):
         return None
 
 
-def _key(t: torch.Tensor) -> Optional[int]:
-    st = _storage(t)
-    return None if st is None else st._cdata
-
-
 def _read_bytes(t: torch.Tensor) -> int:
     st = _storage(t)
     n = t.numel() * t.element_size()
@@ -241,6 +247,15 @@ def _boundary(name: str, ins, outs) -> bool:
         return bool(outs) and outs[0].device != ins[0].device
     return (name in _PRODUCTS or name in _GATHERS or name in _UPDATES
             or name in _LAYOUT)
+
+
+def _node_key(node) -> int:
+    """An autograd node's id, handed out on first sight and kept in its
+    metadata (module docstring)."""
+    meta = node.metadata
+    if _NODE not in meta:
+        meta[_NODE] = next(_NODE_IDS)
+    return meta[_NODE]
 
 
 def _group_size(func, args, kwargs) -> int:
@@ -261,10 +276,10 @@ def _group_size(func, args, kwargs) -> int:
 
 
 class _Record:
-    __slots__ = ("nbytes", "weight", "seq", "ref")
+    __slots__ = ("nbytes", "weight", "seq")
 
     def __init__(self, nbytes: int, seq: int):
-        self.nbytes, self.weight, self.seq, self.ref = nbytes, 1, seq, None
+        self.nbytes, self.weight, self.seq = nbytes, 1, seq
 
 
 class _Tagger(TorchFunctionMode):
@@ -299,6 +314,10 @@ class Counter(TorchDispatchMode):
         self._slots: Dict[tuple, set] = {}
         self._held: Dict[int, list] = {}
         self._marked = WeakIdKeyDictionary()
+        # Each storage seen: its address -> (its id, a weak reference that
+        # drops the id's entries when it is freed); by id, the fresh ones.
+        self._ids: Dict[int, tuple] = {}
+        self._next_id = 0
         self._storages: Dict[int, _Record] = {}
         self._seq = 0
         self._live = 0
@@ -338,7 +357,7 @@ class Counter(TorchDispatchMode):
         seen = set()
         total = 0
         for t in _tensors(result):
-            key = _key(t)
+            key = self._key(t)
             rec = self._storages.get(key)
             if rec is not None and key not in seen:
                 seen.add(key)
@@ -389,7 +408,7 @@ class Counter(TorchDispatchMode):
                     continue
                 for frame, it in marks:
                     if (frame, 0) not in outer and (frame, 1) not in outer:
-                        self._slots.setdefault((frame, id(nxt), nr),
+                        self._slots.setdefault((frame, _node_key(nxt), nr),
                                                set()).add(it)
                         if it == 1:
                             leaving.append((i, frame, nxt, nr))
@@ -404,9 +423,10 @@ class Counter(TorchDispatchMode):
         own stand-ins for the iterations not run, and the weight goes."""
         for i, frame, nxt, nr in leaving:
             g = grads[i]
-            if g is None or self._slots.get((frame, id(nxt), nr)) != {1}:
+            if g is None or self._slots.get(
+                    (frame, _node_key(nxt), nr)) != {1}:
                 continue
-            key = _key(g)
+            key = self._key(g)
             rec = self._storages.get(key)
             if rec is None:
                 continue
@@ -414,7 +434,7 @@ class Counter(TorchDispatchMode):
             self._live += rec.nbytes * rec.weight * (factor - 1)
             rec.weight *= factor
             self._peak = max(self._peak, self._live)
-            held = self._held.setdefault(id(nxt), [])
+            held = self._held.setdefault(_node_key(nxt), [])
             if not held:
                 nxt.register_prehook(functools.partial(self._stood_in, nxt,
                                                        held))
@@ -482,7 +502,8 @@ class Counter(TorchDispatchMode):
         seq1, peak = self._seq, self._peak
         self._peak = self._live
         yield from run(n - 1, 1, 0, read_last)
-        pieces = set() if outs is None else {_key(t) for t in _tensors(outs)}
+        pieces = (set() if outs is None
+                  else {self._key(t) for t in _tensors(outs)})
         left = 0
         for key, rec in self._storages.items():
             made = seq0 <= rec.seq < seq1
@@ -542,7 +563,7 @@ class Counter(TorchDispatchMode):
                 self._marked[t] = True
             return
         if self._reading:
-            keys = {_key(t) for t in ins}
+            keys = {self._key(t) for t in ins}
             for reads in self._reading:
                 reads |= keys
         ns = func.namespace
@@ -603,13 +624,13 @@ class Counter(TorchDispatchMode):
                      + sum(_read_bytes(t) for t in writes + written))
         self.counts.hbm_bytes += moved * w + self._materialize(ins)
         for t in written:
-            self._pending.pop(_key(t), None)
+            self._pending.pop(self._key(t), None)
         self._end_fusion()
 
     def _fused_traffic(self, ins, writes, written, w) -> None:
         moved = 0
         for t, how in [(t, "r") for t in ins] + [(t, "w") for t in written]:
-            key = _key(t)
+            key = self._key(t)
             made = self._pending.get(key)
             if made is not None:
                 if made[0] == self._fusion:
@@ -624,7 +645,7 @@ class Counter(TorchDispatchMode):
         for t in writes:
             st = _storage(t)
             if st is not None:
-                self._pending[st._cdata] = (self._fusion, w, st.nbytes())
+                self._pending[self._key(t)] = (self._fusion, w, st.nbytes())
 
     def _materialize(self, tensors) -> float:
         """The writes of the storages of ``tensors`` that a fusion made and
@@ -632,7 +653,7 @@ class Counter(TorchDispatchMode):
         are in HBM from now on."""
         total = 0.0
         for t in tensors:
-            made = self._pending.pop(_key(t), None)
+            made = self._pending.pop(self._key(t), None)
             if made is not None:
                 total += made[1] * made[2]
         return total
@@ -669,25 +690,42 @@ class Counter(TorchDispatchMode):
     def _track(self, func, ins, out, outs) -> None:
         if not outs:
             return
-        in_keys = {_key(t) for t in ins}
+        in_keys = {self._key(t) for t in ins}
         for t, fresh in self._fresh(func, out):
             if not fresh:
                 continue
             st = _storage(t)
             if st is None:
                 continue
-            key = st._cdata
+            key = self._key(t)
             if key in in_keys or key in self._storages:
                 continue
             rec = _Record(st.nbytes(), self._seq)
             self._seq += 1
-            rec.ref = weakref.ref(st, functools.partial(self._freed, key))
             self._storages[key] = rec
             self._live += rec.nbytes
             if self._live > self._peak:
                 self._peak = self._live
 
-    def _freed(self, key: int, _ref) -> None:
+    def _key(self, t: torch.Tensor) -> Optional[int]:
+        """The id of ``t``'s storage (module docstring)."""
+        st = _storage(t)
+        if st is None:
+            return None
+        addr = st._cdata
+        seen = self._ids.get(addr)
+        if seen is not None and seen[1]() is st:
+            return seen[0]
+        key = self._next_id
+        self._next_id += 1
+        self._ids[addr] = (key, weakref.ref(
+            st, functools.partial(self._freed, addr, key)))
+        return key
+
+    def _freed(self, addr: int, key: int, _ref) -> None:
+        """A storage seen is freed: its id's entries go."""
+        if self._ids.get(addr, (None,))[0] == key:
+            del self._ids[addr]
         self._pending.pop(key, None)
         self._in_fusion.pop(key, None)
         rec = self._storages.pop(key, None)

@@ -122,6 +122,40 @@ def test_fused_traffic_counts_at_boundaries():
         + 2 * 256 + 3 * 256 + 3 * 256)
 
 
+@pytest.mark.parametrize("keep", [False, True], ids=["freed", "kept"])
+@pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
+def test_counts_do_not_depend_on_reused_addresses(fake, keep):
+    """Sixty-four scalar constants, each made inside one fusion, read once
+    and (unless kept) freed at once, so the allocator hands the next one
+    the same address: each is a storage of its own and is read once. The
+    count keyed its entries on storage addresses, and a freed scalar's
+    entry hid the next one's read (the multiplied xLSTM train step's fused
+    count fell one fp32 scalar short of the full one's in some processes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.counting import Counter
+
+    n, vec = 64, 16 * 4
+    kept = []
+    with (FakeTensorMode(allow_non_fake_inputs=True) if fake
+          else contextlib.nullcontext()):
+        x, w = torch.ones(16), torch.ones(16)
+        counter = Counter()
+        with counter:
+            y = x * 1.0  # reads x; y stays in the fusion
+            for i in range(n):
+                s = torch.tensor(float(i + 2))
+                if keep:
+                    kept.append(s)
+                y = y * s  # reads the scalar
+                del s
+            out = y @ w  # y written and read; w read; out written
+        counts = counter.finish(out)
+    assert counts.hbm_bytes == vec + 4 * n + (2 * vec + vec + 4)
+    assert counts.hbm_bytes_unfused == (2 * vec + n * (2 * vec + 4)
+                                        + (2 * vec + 4))
+
+
 def _qkv(dtype, sq=8, skv=8):
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(2, sq, 4, 16, generator=gen).to(dtype)

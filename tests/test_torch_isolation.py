@@ -1,10 +1,10 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
 ``attention_mutants.py``, ``gemm_ablation.py``, ``pair_per_gemm.py``,
 ``examples/continuous_learning_drive_torch.py``,
-``examples/fleet_drive_torch.py``, ``examples/serve_lm_torch.py`` and
-``examples/train_lm_torch.py`` import neither ``jax`` nor the JAX
-package, and its entry points default to the card and refuse to run
-without one."""
+``examples/fleet_drive_torch.py``, ``examples/serve_lm_torch.py``,
+``examples/train_lm_torch.py`` and ``examples/quickstart_torch.py``
+import neither ``jax`` nor the JAX package, and its entry points default
+to the card and refuse to run without one."""
 import ast
 import subprocess
 import sys
@@ -21,7 +21,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "continuous_learning_drive_torch.py",
     ROOT / "examples" / "fleet_drive_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
-    ROOT / "examples" / "train_lm_torch.py"]
+    ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "quickstart_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
