@@ -85,7 +85,14 @@ exits non-zero without printing a result:
    its first and last decodes against 4097 and 4128 of a 4128-slot ring,
    the serve example's fp32 decodes at D 16 against 33 and 48 of 48
    slots), a decode-append (128 queries at offset 8064 against 8192
-   keys) in bf16 and in fp32, and rows with no key (exactly 0); at every
+   keys) in bf16 and in fp32, rows with no key (exactly 0), and phase
+   19's models (``arch_attention_cases``, built from ``ARCH_MODELS``
+   and ``ARCH_DRIVERS``: each model's prefill and last decode step at its
+   own batch, prompt + 32, heads, window and dtype, among them G = 48
+   multi-query at granite-20b, G = 8 at yi-6b, G = 7 at yi-34b, causal
+   MHA at D 64 at musicgen-medium and G = 6 on mixtral-8x22b's wrapped
+   4096-slot ring; each serve driver's fp32 prefill of 4 x 512 and its
+   decode against 543 of 544 slots); at every
    decode, the gemma2-2b prefill and the rows with no key also the
    kernel's row log-sum-exp (``return_lse``) against the plain version's
    (``LSE_TOL``; -inf where a row has no key) and the output with lse
@@ -177,7 +184,9 @@ exits non-zero without printing a result:
    call through the kernel, 26 launches a prefill and 26 a decode step;
    the decode logits held to one ``hidden``/``logits`` pass over prompt and
    generated tokens (RMS share within ``LM_RMS_SHARE``, greedy tokens
-   equal but for near ties, |logit| <= 30); then the serve driver as the
+   equal but for near ties, |logit| <= 30), the decoded ring slots held to
+   the slots that pass fills and ``DECODE_FAULTS`` planted, as in phase
+   19; then the serve driver as the
    reference runs it (fp32, batch 4, prompt 512, 32 tokens: prefill ms,
    decode tok/s, peak memory) and the train driver (fp32 AdamW, batch 1 x
    seq 1024, 3 steps with finite loss: each step's wall, peak memory),
@@ -194,7 +203,10 @@ exits non-zero without printing a result:
    ``param_defs()``, the eager recurrences' share of the prefill and the
    MoE drops at the config's capacity factor logged, decode held to one
    full pass (``MIXER_RMS_SHARE``; at a capacity factor of e / k for the
-   MoE models), for xlstm-125m also in fp32 (``XLSTM_FP32_SHARE``) and
+   MoE models, every reroute within ``ROUTE_TIE`` of a tie; for the two
+   with attention layers also the decoded ring slots and
+   ``DECODE_FAULTS``, as in phase 19), for xlstm-125m also in fp32
+   (``XLSTM_FP32_SHARE``) and
    with three decode faults planted, each of which both limits must fail
    (``xlstm_decode_bracket``); the reduced three trained once on the card
    and once on the CPU port, loss and gradients within
@@ -252,6 +264,30 @@ exits non-zero without printing a result:
    through the attention kernel; a DC-ST session). Every kernel call is
    "cuda", and the quantize, dequantize, MX GEMM and attention kernels
    each launch.
+19. archs  — the six LM archs no earlier phase runs, at published width
+   in their configs' bf16 (``archs_phase``, ``ARCH_MODELS``): yi-6b whole
+   (4 x 4096 tokens), yi-34b at 30 of 60 layers (2 x 4096), granite-20b
+   whole (multi-query attention, LayerNorm and a GELU MLP, learned
+   positions; 2 x 4096), llava-next-mistral-7b whole (4 x 4096 embedding
+   rows), musicgen-medium whole (4 x 2048 frame rows, sinusoidal
+   positions, four output heads), mixtral-8x22b at 4 of 56 (4 x 4096; its
+   4096-slot rings wrap in decode), each through phase 14's
+   ``mixer_serving``: weights from a seeded CUDA generator,
+   ``layer_scale_``d, their element count against ``param_defs()`` and
+   equal to the same draw made again; 32 greedy decode steps (an
+   embeddings model decodes seeded rows, its greedy tokens not fed back)
+   twice, bit for bit; one attention launch a layer a prefill and a
+   decode step, all "cuda"; decode held to one full pass
+   (``lm_decode_against_full``, ``mixer_moe_decode_check`` for the MoE,
+   which holds only a token's first reroute to ``ROUTE_TIE`` here) within
+   ``MIXER_RMS_SHARE`` on the logits (all four heads of musicgen) and
+   on the decoded ring slots (``ring_readings``), with each of
+   ``DECODE_FAULTS`` planted reading at least ``FAULT_MARGIN`` x that
+   limit (``decode_fault_bracket``); prefill ms, decode tok/s, host-issue
+   share, a profiled decode step, the peak memory and the MoE drops
+   logged. Then the serve driver at full width in fp32 for the two
+   embeddings models (``arch_drivers``) and the six reduced configs' loss
+   and gradients on the card against the CPU port (``mixer_gradients``).
 
 Device times are medians over launches between CUDA events, the L2
 flushed before each and its dirty lines written back before the start
@@ -813,20 +849,87 @@ ATTENTION_CASES = (
     ("fully masked rows", (1, 64, 64, 2, 2, 32), "float32",
      dict(causal=True, q_offset=-4)),
 )
-# The decode cases read K/V as phases 13 and 14 decode: a [B, Kv, L, D]
-# ring viewed as [B, L, Kv, D] (``models/attention.py::flash_decode``), so
-# the head stride exceeds the sequence stride.
+# Phase 19's models: (arch, layers kept, batch, prompt), the six LM archs
+# no earlier phase runs, each served at its published widths in its
+# config's bf16, the depth cut only where one card's 80 GB forces it:
+# yi-34b at 30 of 60 layers (35.3 GB of weights; whole it would hold 68.8
+# GB, and ``ParamDef.initialize`` draws a stacked leaf in fp32 before
+# casting it, 35.2 GB more for its [60, 7168, 20480] MLP leaves),
+# mixtral-8x22b at 4 of 56 as phase 14 cuts mixtral-8x7b; granite-20b
+# whole (40.7 GB; its [52, 6144, 24576] MLP leaves' fp32 draws 31.4 GB
+# each), its prompt + generated positions within its 8192 learned ones.
+ARCH_MODELS = (("yi-6b", 32, 4, 4096), ("yi-34b", 30, 2, 4096),
+               ("granite-20b", 52, 2, 4096),
+               ("llava-next-mistral-7b", 32, 4, 4096),
+               ("musicgen-medium", 48, 4, 2048),
+               ("mixtral-8x22b", 4, 4, 4096))
+# The serve driver (fp32, as the reference runs it) on phase 19's two
+# models whose input is embeddings.
+ARCH_DRIVERS = ("llava-next-mistral-7b", "musicgen-medium")
+DRIVER_BATCH, DRIVER_PROMPT, DRIVER_GEN = 4, 512, 32
+ARCH_DRIVER_ARGS = ["--batch", str(DRIVER_BATCH), "--prompt-len",
+                    str(DRIVER_PROMPT), "--gen", str(DRIVER_GEN)]
+# Phase 7's cases at phase 19's models (``arch_attention_cases``, run
+# after ``ATTENTION_CASES``): the prefill and the last decode step of each
+# model's serving run and of each serve driver's, at the model's own
+# batch, heads, window and dtype. They cover multi-query attention at G =
+# 48 (granite-20b), G = 8 (yi-6b), G = 7 (yi-34b), causal MHA at D = 64
+# (musicgen-medium) and G = 6 on a wrapped 4096-slot ring (mixtral-8x22b).
+ARCH_DECODES = (tuple(f"{arch} ring decode" for arch, *_ in ARCH_MODELS)
+                + tuple(f"{arch} serve driver decode fp32"
+                        for arch in ARCH_DRIVERS))
+
+
+def arch_attention_cases() -> tuple:
+    """Phase 7's cases at ``ARCH_MODELS`` and ``ARCH_DRIVERS``, in phase
+    7's form (label, (B, Sq, Skv, H, Kv, D), dtype, options): a model's
+    prefill of its prompt (causal, its window and softcap) and its last
+    decode step, which reads the ring's prompt + ``MIXER_GEN`` slots, or
+    the window's slots where the ring wraps; a serve driver's prefill and
+    last decode step (position prompt + gen - 2) in fp32."""
+    from repro_torch.configs import get_arch
+
+    runs = [(arch, batch, prompt, prompt + MIXER_GEN, get_arch(arch).dtype,
+             "") for arch, _, batch, prompt in ARCH_MODELS]
+    runs += [(arch, DRIVER_BATCH, DRIVER_PROMPT,
+              DRIVER_PROMPT + DRIVER_GEN - 1, "float32", " serve driver")
+             for arch in ARCH_DRIVERS]
+    cases = []
+    for arch, batch, prompt, keys, dtype, what in runs:
+        cfg = get_arch(arch)
+        heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        opts = {"causal": True}
+        if cfg.sliding_window:
+            opts["window"] = cfg.sliding_window
+            keys = min(keys, cfg.sliding_window)
+        if cfg.attn_softcap is not None:
+            opts["softcap"] = cfg.attn_softcap
+        fp32 = " fp32" if what else ""
+        cases.append((f"{arch}{what}{fp32 or ' prefill'}",
+                      (batch, prompt, prompt) + heads, dtype, opts))
+        cases.append((f"{arch}{what or ' ring'} decode{fp32}",
+                      (batch, 1, keys) + heads, dtype,
+                      {k: v for k, v in opts.items() if k == "softcap"}
+                      | {"causal": False}))
+    return tuple(cases)
+
+
+# The decode cases read K/V as phases 13, 14 and 19 decode: a [B, Kv, L,
+# D] ring viewed as [B, L, Kv, D] (``models/attention.py::flash_decode``),
+# so the head stride exceeds the sequence stride.
 HEAD_MAJOR_KV = ("gemma2-2b ring decode", "gemma2-2b global ring decode",
                  "gemma2-2b serve driver decode fp32",
                  "mixtral-8x7b ring decode", "jamba-v0.1-52b first decode",
                  "jamba-v0.1-52b last decode",
                  "serve example first decode fp32",
-                 "serve example last decode fp32")
+                 "serve example last decode fp32") + ARCH_DECODES
 # Where a decode reads the filled prefix of a longer ring: the ring's L
 # (phase 14's jamba decodes against 4097 to 4128 of 4128 slots, the serve
 # example's reduced mixtral-8x7b against 33 to 48 of 48).
 RING_SLOTS = {"jamba-v0.1-52b first decode": 4128,
-              "serve example first decode fp32": 48}
+              "serve example first decode fp32": 48,
+              **{f"{arch} serve driver decode fp32": DRIVER_PROMPT + DRIVER_GEN
+                 for arch in ARCH_DRIVERS}}
 ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 # A second limit: the error's RMS as a share of the plain output's RMS.
 # Where rows average thousands of keys, a typical output (sqrt(e / Skv),
@@ -844,8 +947,8 @@ ATTENTION_RMS_SHARE = {"float32": 2.0 ** -12, "bfloat16": 2.0 ** -6}
 # two differ by summation order, ~1e-6 of |lse| <= ~60; a kv combine that
 # drops a piece or skips its rescale moves lse by O(0.1).
 LSE_CASES = tuple(label for label, *_ in ATTENTION_CASES
-                  if "decode" in label) + ("gemma2-2b prefill batch 4",
-                                          "fully masked rows")
+                  if "decode" in label) + ARCH_DECODES + (
+                      "gemma2-2b prefill batch 4", "fully masked rows")
 LSE_TOL = 2e-5
 
 
@@ -972,7 +1075,8 @@ ATTENTION_DESIGN = {"float32": "3xTF32 mma.sync m16n8k8",
 
 def attention_phase(dev="cuda"):
     """Phase 7: the attention kernel against its plain version on the card
-    at every case of ``ATTENTION_CASES``, within both limits of
+    at every case of ``ATTENTION_CASES`` and ``arch_attention_cases``,
+    within both limits of
     ``attention_within`` (and, where the plan splits the kv range, against
     the plain version of the split too); rows with no key exactly 0. Prints
     each case's design and kv split count; times kernel, plain version and
@@ -985,7 +1089,8 @@ def attention_phase(dev="cuda"):
 
     gen = torch.Generator(device=dev).manual_seed(7)
     rows, max_err = [], 0.0
-    for label, shape, dtype, opts in ATTENTION_CASES:
+    for label, shape, dtype, opts in (ATTENTION_CASES
+                                      + arch_attention_cases()):
         b, sq, skv, h, kvh, d = shape
         head_major = label in HEAD_MAJOR_KV
         q, k, v = attention_inputs(gen, shape, dtype, dev, head_major,
@@ -2541,18 +2646,22 @@ def device_busy_ms(fn):
 
 
 def lm_serve(model, prompts, gen: int, profile_step=None,
-             params=None) -> dict:
-    """One serving run of phases 13 and 14: ``params`` (default: weights
-    from a fresh CUDA generator, seed 0), the prefill of ``prompts`` into a
-    cache of prompt + ``gen`` slots, then ``gen`` greedy decode steps.
-    Returns the params, the decode logits [B, gen, V] and the tokens fed
-    [B, gen], host walls, and the
-    attention launches of the prefill and of each decode step. Nothing
-    in the decode loop waits for the card, so ``issue_s`` (the host time
-    spent inside ``decode_step``) near ``decode_s`` means the host, not
-    the card, sets the pace. Decode step ``profile_step`` (if any) runs
-    between two syncs under the profiler: ``step_profile`` is its host
-    wall and device busy ms (``device_busy_ms``)."""
+             params=None, rows=None) -> dict:
+    """One serving run of phases 13, 14 and 19: ``params`` (default:
+    weights from a fresh CUDA generator, seed 0), the prefill of
+    ``prompts`` into a cache of prompt + ``gen`` slots, then ``gen``
+    greedy decode steps. A model whose input is embeddings (prompts [B, S,
+    D]) decodes the rows ``rows`` [B, gen, D], one a step; its greedy
+    tokens are kept but not fed back (its frontend is a stub). Returns the
+    params, the decode logits [B, gen, (nH,) V], the inputs fed ([B, gen]
+    tokens or the rows) and the greedy tokens, host walls, the attention
+    launches of the prefill and of each decode step, and the caches after
+    the last step. Nothing in the decode
+    loop waits for the card, so ``issue_s`` (the host time spent inside
+    ``decode_step``) near ``decode_s`` means the host, not the card, sets
+    the pace. Decode step ``profile_step`` (if any) runs between two syncs
+    under the profiler: ``step_profile`` is its host wall and device busy
+    ms (``device_busy_ms``)."""
     import torch
 
     from repro_torch.kernels import mx_quantize as mxq
@@ -2570,49 +2679,57 @@ def lm_serve(model, prompts, gen: int, profile_step=None,
     prefill_s = time.perf_counter() - t0
     per_prefill = mxq.launch_counts()["flash_attention"]
     tok = logits.argmax(-1)
-    fed, outs, per_step = [], [], []
+    fed, outs, greedy, per_step = [], [], [], []
     issue_s, step_profile = 0.0, None
     t0 = time.perf_counter()
     for i in range(gen):
         before = mxq.launch_counts()["flash_attention"]
-        fed.append(tok)
+        step_in = tok[:, None] if rows is None else rows[:, i:i + 1]
+        fed.append(step_in[:, 0])
         t1 = time.perf_counter()
         if i == profile_step:
             box = []
             step_profile = device_busy_ms(lambda: box.append(
-                model.decode_step(params, tok[:, None], s + i, caches)))
+                model.decode_step(params, step_in, s + i, caches)))
             logits, caches = box[0]
         else:
-            logits, caches = model.decode_step(params, tok[:, None], s + i,
+            logits, caches = model.decode_step(params, step_in, s + i,
                                                caches)
         issue_s += time.perf_counter() - t1
         per_step.append(mxq.launch_counts()["flash_attention"] - before)
         outs.append(logits)
         tok = logits.argmax(-1)
+        greedy.append(tok)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     return {"params": params, "logits": torch.stack(outs, 1),
-            "fed": torch.stack(fed, 1), "prefill_s": prefill_s,
+            "fed": torch.stack(fed, 1), "greedy": torch.stack(greedy, 1),
+            "prefill_s": prefill_s,
             "decode_s": decode_s, "issue_s": issue_s,
             "step_profile": step_profile,
             "per_prefill": per_prefill,
             "per_step": per_step,
+            "caches": caches,
             "stats": ops.kernel_stats().get("flash_attention")}
 
 
-def full_pass_logits(model, params, prompts, fed):
-    """One ``hidden``/``logits`` pass over prompt + ``fed`` tokens: (the
-    logits at the fed tokens' positions [B, gen, V], attention launches)."""
+def full_pass_logits(model, params, prompts, fed, caches=None):
+    """One ``hidden``/``logits`` pass over prompt + ``fed`` inputs (tokens
+    [B, gen] or embedding rows [B, gen, D]): (the logits at the fed
+    inputs' positions [B, gen, (nH,) V], attention launches). ``caches``,
+    if given (``init_caches`` of prompt + gen slots), are filled as a
+    prefill of all those positions fills them."""
     import torch
 
     from repro_torch.kernels import mx_quantize as mxq
 
     s, gen = prompts.shape[1], fed.shape[1]
-    tokens = torch.cat([prompts, fed.to(prompts.dtype)], 1)
+    inputs = torch.cat([prompts, fed.to(prompts.dtype)], 1)
     before = mxq.launch_counts()["flash_attention"]
     with torch.no_grad():
-        x, _, _ = model.hidden(params, tokens, mode="prefill",
-                               positions=torch.arange(s + gen), remat=False)
+        x, _, _ = model.hidden(params, inputs, mode="prefill",
+                               positions=torch.arange(s + gen),
+                               caches=caches, remat=False)
         full = model.logits(params, x[:, s:])
     return full, mxq.launch_counts()["flash_attention"] - before
 
@@ -2641,25 +2758,185 @@ def decode_readings(dec, full, held=None) -> dict:
             "tokens": int(held.sum())}
 
 
+def attention_layers(cfg) -> int:
+    """The number of attention layers of an LM config."""
+    from repro_torch.configs.base import MIXER_ATTENTION
+
+    return [cfg.mixer_for_layer(i) for i in range(cfg.num_layers)].count(
+        MIXER_ATTENTION)
+
+
 def lm_decode_against_full(model, params, prompts, run: dict,
-                           limit: float = LM_RMS_SHARE) -> dict:
-    """Phase 13's (and 14's) check of decode against one
-    ``hidden``/``logits`` pass over prompt + generated tokens, at the
+                           limit: float = LM_RMS_SHARE,
+                           tag: str = "lm") -> dict:
+    """Phase 13's (and 14's and 19's) check of decode against one
+    ``hidden``/``logits`` pass over prompt + generated inputs, at the
     generated positions: the RMS share within ``limit``, every logit
     within the final softcap (if the config has one), greedy tokens equal
-    except near ties. Returns the readings."""
+    except near ties. Where the model has attention layers the full pass
+    also fills a cache, the decode's ring slots (``run``'s caches) are
+    held to it (``ring_readings``, within ``limit``), and
+    ``decode_fault_bracket`` plants each of ``DECODE_FAULTS``. Returns the
+    readings."""
     cap = model.cfg.final_softcap
     s, gen = prompts.shape[1], run["fed"].shape[1]
-    full, launches = full_pass_logits(model, params, prompts, run["fed"])
+    ring = attention_layers(model.cfg) > 0
+    caches = model.init_caches(prompts.shape[0], s + gen) if ring else None
+    full, launches = full_pass_logits(model, params, prompts, run["fed"],
+                                      caches)
     readings = decode_readings(run["logits"], full)
     readings.update(full_pass_launches=launches, positions=[s, s + gen - 1])
+    if ring:
+        readings["ring"] = ring_readings(run["caches"], caches, s, gen)
     if (not readings["rms_share"] <= limit or readings["argmax_differ_clear"]
             or (cap is not None and not readings["max_abs_logit"] <= cap)
-            or not readings["finite"]):
+            or not readings["finite"]
+            or (ring and not ring_within(readings["ring"], limit))):
         raise AssertionError(f"{model.cfg.name}: decode against the full "
                              f"pass: {readings} (limits: RMS share {limit}, "
                              f"no clear argmax change, |logit| <= {cap})")
+    if ring:
+        readings["faults"] = decode_fault_bracket(
+            model, params, prompts, run["fed"], full, caches, limit, tag)
     return readings
+
+
+# Decode faults planted in each model of phases 13, 14 and 19 that has
+# attention layers (``decode_fault_bracket``), each of which the decode
+# check must fail: a decode at position t - 1 in place of t (its rope
+# angle or position embedding, and the ring slot it writes), and the new
+# token's ring slot left stale with its position recorded
+# (``attention.write_slot`` writes the slot's own old K/V back, so the
+# attention reads what the slot held before: zeros, or in a wrapped ring
+# the K/V of position t - L). Each decodes FAULT_STEPS steps from a copy of
+# the prefilled cache. Both faults live in the attention, which at
+# layer-scaled weights moves the logits little: each attention averages
+# thousands of keys (its logits ~N(0, 1)), so its output is a small
+# fraction of a value's scale and the MLPs set the logits. On an H100 the
+# faults moved the six archs' logits by RMS shares of 0.015-0.13, never
+# 10x the limit. The check therefore also holds the decode's ring slots
+# to the full pass's (``ring_readings``): their recorded positions
+# exactly, which the t - 1 fault always breaks, and their K/V within the
+# same limit, which the stale slot must break by FAULT_MARGIN x (sound
+# decodes read 0.006-0.016, a stale slot ~1: zeros read exactly 1). A
+# t - 1 decode of a token that repeats the one before writes nearly the
+# K/V the right decode wrote one slot on, so its K/V share falls to that
+# of the one slot it leaves stale (0.6 at reduced gemma2-2b on the CPU).
+DECODE_FAULTS = ("position t - 1", "stale ring slot")
+FAULT_STEPS = 4
+FAULT_MARGIN = 10.0
+
+
+def ring_readings(dec, full, s: int, steps: int, held=None) -> dict:
+    """A decode's attention ring caches ``dec`` against the full pass's
+    ``full`` (``init_caches`` of the same capacity, filled by a prefill
+    of every position) at the slots of positions s .. s + steps - 1, over
+    every attention layer: RMS(k and v differences) / RMS(the full pass's
+    k and v), over the (sequence, step) pairs ``held`` [B, steps]
+    (default all), and whether the slots' recorded positions agree."""
+    import torch
+
+    num = den = 0.0
+    positions_equal, layers = True, 0
+    for d, f in zip(dec, full):
+        if not (isinstance(f, dict) and "pos" in f):
+            continue  # a Mamba or xLSTM cache
+        cap = f["k"].shape[-2]
+        slots = torch.tensor([(s + i) % cap for i in range(steps)],
+                             device=f["k"].device)
+        positions_equal &= torch.equal(d["pos"][..., slots],
+                                       f["pos"][..., slots])
+        mask = (1.0 if held is None else
+                held.float()[None, :, None, :, None])
+        for key in ("k", "v"):
+            a = d[key][..., slots, :].float()
+            b = f[key][..., slots, :].float()
+            num += float(((a - b).square() * mask).sum())
+            den += float((b.square() * mask).sum())
+        layers += f["k"].shape[0]
+    return {"rms_share": math.sqrt(num / den) if den else 0.0,
+            "positions_equal": bool(positions_equal),
+            "attention_layers": layers, "slots": steps}
+
+
+def ring_within(ring: dict, limit: float) -> bool:
+    return ring["rms_share"] <= limit and ring["positions_equal"]
+
+
+@contextlib.contextmanager
+def planted_decode_fault(fault):
+    """Plant ``"stale ring slot"`` (``attention.write_slot`` records the
+    position but writes the slot's own K/V back); ``"position t - 1"`` is
+    the caller's shifted position."""
+    from repro_torch.models import attention
+
+    write = attention.write_slot
+
+    def stale(cache, k, v, t):
+        slot = attention.cache_slot(t, cache["k"].shape[2])
+        write(cache, *(cache[key][:, :, slot:slot + 1].transpose(1, 2)
+                       .clone() for key in ("k", "v")), t)
+
+    if fault == "stale ring slot":
+        attention.write_slot = stale
+    try:
+        yield
+    finally:
+        attention.write_slot = write
+
+
+def decode_fault_bracket(model, params, prompts, fed, full, full_caches,
+                         limit: float, tag: str) -> dict:
+    """Planted decode faults: one prefill of ``prompts``, then
+    for each of ``DECODE_FAULTS`` ``FAULT_STEPS`` decode steps of the
+    inputs ``fed`` from a copy of its cache with the fault planted, held
+    to the full pass (its logits ``full`` and its caches ``full_caches``):
+    each must move the ring's recorded positions, or reach
+    ``FAULT_MARGIN`` x ``limit`` with the larger of the logits' and the
+    ring's RMS shares. Returns each fault's readings."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    s = prompts.shape[1]
+    with torch.no_grad():
+        _, prefilled = model.prefill(params, prompts,
+                                     cache_capacity=s + fed.shape[1])
+    out = {}
+    for fault in DECODE_FAULTS:
+        caches, logits = tree_map(torch.clone, prefilled), []
+        shift = 1 if fault == "position t - 1" else 0
+        with planted_decode_fault(fault), torch.no_grad():
+            for i in range(FAULT_STEPS):
+                step, caches = model.decode_step(
+                    params, fed[:, i:i + 1], s + i - shift, caches)
+                logits.append(step)
+        ring = ring_readings(caches, full_caches, s, FAULT_STEPS)
+        shares = {"logits_rms_share": decode_readings(
+            torch.stack(logits, 1), full[:, :FAULT_STEPS])["rms_share"],
+                  "ring_rms_share": ring["rms_share"]}
+        out[fault] = {**shares,
+                      "ring_positions_equal": ring["positions_equal"],
+                      "caught_by": [by for by, hit in (
+                          ("positions", not ring["positions_equal"]),
+                          ("values", max(shares.values())
+                           >= FAULT_MARGIN * limit)) if hit]}
+        del caches, logits
+    log(tag, f"{model.cfg.name}: {FAULT_STEPS} decode steps with a fault "
+        f"planted, against the full pass (RMS shares; limit {limit:.4g}; a "
+        f"fault must move the slots' positions or reach {FAULT_MARGIN:g}x "
+        "in values): " + "; ".join(
+            f"{fault}: logits {r['logits_rms_share']:.4g}, ring "
+            f"{r['ring_rms_share']:.4g}, slot positions "
+            f"{'equal' if r['ring_positions_equal'] else 'differ'}, caught "
+            f"by {' and '.join(r['caught_by']) or 'nothing'}"
+            for fault, r in out.items()))
+    missed = [fault for fault, r in out.items() if not r["caught_by"]]
+    if missed:
+        raise AssertionError(f"{model.cfg.name}: planted decode faults "
+                             f"{missed} leave the positions and read below "
+                             f"{FAULT_MARGIN:g} x the limit {limit}: {out}")
+    return out
 
 
 def lm_phase() -> dict:
@@ -2753,8 +3030,13 @@ def lm_phase() -> dict:
         "{positions}: RMS share {rms_share:.4g} (limit {lim:.4g}), max abs "
         "err {max_abs_err:.4g}, |logit| <= {max_abs_logit:.4g}, argmax "
         "differs at {argmax_differ} of {n} (near ties; {argmax_differ_clear} "
-        "clear)".format(p=LM_PROMPT + LM_GEN, lim=LM_RMS_SHARE,
-                        n=LM_BATCH * LM_GEN, **readings))
+        "clear); ring slots of the {gen} decoded positions in {layers} "
+        "attention layers: RMS share {share:.4g}, positions {eq}".format(
+            p=LM_PROMPT + LM_GEN, lim=LM_RMS_SHARE, n=LM_BATCH * LM_GEN,
+            gen=LM_GEN, layers=readings["ring"]["attention_layers"],
+            share=readings["ring"]["rms_share"],
+            eq="equal" if readings["ring"]["positions_equal"] else "differ",
+            **readings))
     del first
     torch.cuda.empty_cache()
 
@@ -2851,7 +3133,13 @@ MIXER_RMS_SHARE = 2.0 ** -4
 # share above (~2 %), so its fp32 logits (~N(0, 1)) move by ~0.02 and a
 # gap between two probabilities (each <= 1/2) by up to ~0.02. A reroute
 # is allowed only where the full pass's gap is within ROUTE_TIE, 1.5x
-# that; a routing fault reroutes tokens far from any tie.
+# that; a routing fault reroutes tokens far from any tie. Once rerouted,
+# a token's next layer reads an input moved by a gate times an expert's
+# output, and may reroute at any gap: mixtral-8x22b rerouted a token at a
+# gap of 0.081 in a layer after its first reroute at 0.003 (phase 19 on
+# an H100), so phase 19 holds only each token's first reroute to the tie
+# (``mixer_moe_decode_check(first_reroutes=True)``); phase 14 holds every
+# reroute.
 ROUTE_TIE = 2.0 ** -5
 # tests/_torch_lm.py's tolerances, for the reduced models' card run held
 # to the CPU port: fp32 summation order (RTOL of each tensor's scale) and
@@ -2879,9 +3167,57 @@ def layer_scale_(model, params):
 
     defs = tree_leaves(model.param_defs()["blocks"])
     for d, leaf in zip(defs, tree_leaves(params["blocks"])):
-        if d.init == "normal" and d.scale is None:
-            leaf.mul_(math.sqrt(d.shape[0] / d.shape[1]))
+        factor = layer_factor(d)
+        if factor is not None:
+            leaf.mul_(factor)
     return params
+
+
+def layer_factor(d):
+    """What ``layer_scale_`` multiplies a stacked block leaf of def ``d``
+    by: sqrt(n_groups / its layer's fan-in) for a default-scaled normal
+    leaf, else None."""
+    if d.init == "normal" and d.scale is None:
+        return math.sqrt(d.shape[0] / d.shape[1])
+    return None
+
+
+def redraw_differences(model, params, seed: int = 0) -> list:
+    """The indices of the leaves of ``params`` (``model.init`` from a CUDA
+    generator seeded ``seed``, then ``layer_scale_``) that differ from
+    the same draw made again. Each leaf is redrawn in fp32 as
+    ``ParamDef.initialize`` draws it (the same generator calls, so the
+    same numbers), then cast and rescaled one slice of its leading dim at
+    a time and compared bit for bit, so no second copy of the weights is
+    ever resident: granite-20b's bf16 weights take 40.7 GB of the card's
+    80, the fp32 draw of one of its MLP leaves 31.4 GB."""
+    import torch
+
+    from repro_torch.distributed import ParamDef
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    defs = model.param_defs()
+    blocks = {id(d) for d in tree_leaves(defs["blocks"])}
+    differ = []
+    for i, (d, leaf) in enumerate(zip(tree_leaves(defs),
+                                      tree_leaves(params))):
+        x = ParamDef(d.shape, d.logical, d.init, torch.float32,
+                     d.scale).initialize(gen)
+        factor = layer_factor(d) if id(d) in blocks else None
+        rows = max(1, (1 << 28) // max(1, x[0].numel())) if x.ndim else 1
+        pieces = ([slice(None)] if x.ndim < 2 else
+                  [slice(j, j + rows) for j in range(0, x.shape[0], rows)])
+        for j in pieces:
+            want = x[j].to(d.dtype)
+            if factor is not None:
+                want.mul_(factor)
+            if not same_bits(leaf[j], want):
+                differ.append(i)
+                break
+            del want
+        del x
+    return differ
 
 
 @contextlib.contextmanager
@@ -3051,14 +3387,17 @@ def xlstm_decode_bracket(model, params, prompts, fed) -> dict:
     return out
 
 
-def route_flips(decoded: list, full: list, s: int, gen: int, k: int):
+def reroutes(decoded: list, full: list, s: int, gen: int, k: int):
     """Where decode routed a generated token to other experts than the
-    full pass did, in any MoE layer: (mask [B, gen], the number of (token,
-    layer) flips, the largest of the full pass's gaps p_k - p_(k+1) between
-    its k-th and (k+1)-th router probabilities at a flip). ``decoded``
-    holds ``route_record``'s calls of a serving run (its one-token decode
-    calls, layer after layer, step after step), ``full`` those of one pass
-    over all s + gen tokens (one group a row)."""
+    full pass did, in any MoE layer: (mask [B, gen], one (sequence, step,
+    layer, gap, first) a (token, layer) flip, in layer order), with the
+    full pass's gap p_k - p_(k+1) between its k-th and (k+1)-th router
+    probabilities there and whether it is the token's first flip: a later
+    layer's flip of the same token reads an input that the first flip
+    moved by a gate times an expert's output. ``decoded`` holds
+    ``route_record``'s calls of a serving run (its one-token decode calls,
+    layer after layer, step after step), ``full`` those of one pass over
+    all s + gen tokens (one group a row)."""
     import torch
 
     steps = [r for r in decoded if r[0].shape[1] == 1]
@@ -3066,18 +3405,26 @@ def route_flips(decoded: list, full: list, s: int, gen: int, k: int):
     if len(steps) != gen * layers:
         raise AssertionError(f"{len(steps)} decode routing calls, expected "
                              f"{gen} x {layers}")
-    flips, count, gap = None, 0, 0.0
+    flips, each = None, []
     for layer, (idx, top, _) in enumerate(full):
         want = idx[:, s:s + gen].sort(-1).values
         got = torch.cat([steps[i * layers + layer][0]
                          for i in range(gen)], 1).sort(-1).values
         flip = (want != got).any(-1)
+        gaps = top[:, s:s + gen, k - 1] - top[:, s:s + gen, k]
+        for b, step in flip.nonzero().tolist():
+            each.append((b, step, layer, float(gaps[b, step]),
+                         flips is None or not bool(flips[b, step])))
         flips = flip if flips is None else flips | flip
-        count += int(flip.sum())
-        if bool(flip.any()):
-            gaps = top[:, s:s + gen, k - 1] - top[:, s:s + gen, k]
-            gap = max(gap, float(gaps[flip].max()))
-    return flips, count, gap
+    return flips, each
+
+
+def route_flips(decoded: list, full: list, s: int, gen: int, k: int):
+    """``reroutes`` summed up: (mask [B, gen], the number of (token,
+    layer) flips, the largest of the full pass's gaps p_k - p_(k+1) at a
+    flip)."""
+    flips, each = reroutes(decoded, full, s, gen, k)
+    return flips, len(each), max((gap for *_, gap, _ in each), default=0.0)
 
 
 def drop_shares(records: list):
@@ -3090,39 +3437,56 @@ def drop_shares(records: list):
             / sum(k[..., 0].numel() for k in keeps))
 
 
-def mixer_serving(cfg, full_layers: int, batch: int, prompt: int) -> dict:
-    """Phase 14, one model at full width in its bf16 (depth cut to
-    ``cfg.num_layers`` of ``full_layers``), its weights from a seeded CUDA
-    generator rescaled to each layer's own init scale (``layer_scale_``):
-    two serving runs from the same seed, bit for bit (weights, decode
-    logits, tokens), every attention call "cuda" at one launch a layer for
-    the prefill and for each decode step; the element count against
-    ``param_defs()``; between them a prefill with the eager recurrences
-    timed (``recurrence_spans``) and the MoE drops counted
-    (``route_record``); one decode step of the second run profiled; decode
-    against one full pass (``lm_decode_against_full`` within
-    ``MIXER_RMS_SHARE``; ``mixer_moe_decode_check`` for the MoE models;
-    ``xlstm_decode_bracket`` for xlstm-125m). Returns the readings."""
-    import dataclasses
-
+def serving_inputs(cfg, batch: int, prompt: int, gen: int, dev):
+    """(prompts, decode rows) of a serving run: ``TokenPipeline`` tokens
+    [B, prompt] (seed 0) and no rows; for a model whose input is
+    embeddings, N(0, 1) rows [B, prompt, D] and [B, gen, D] drawn from a
+    CUDA generator seeded 1 (the serve driver's rows are N(0, 1) too)."""
     import torch
 
-    from repro_torch.configs.base import MIXER_ATTENTION
     from repro_torch.data.tokens import TokenPipeline
+
+    if cfg.input_mode == "embeddings":
+        rows = torch.randn((batch, prompt + gen, cfg.d_model), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(1))
+        return rows[:, :prompt].contiguous(), rows[:, prompt:].contiguous()
+    return torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, prompt, batch, seed=0).batch(0)["inputs"]).to(
+            dev), None
+
+
+def mixer_serving(cfg, full_layers: int, batch: int, prompt: int,
+                  tag: str = "mixers", first_reroutes: bool = False) -> dict:
+    """Phases 14 and 19, one model at full width in its bf16 (depth cut to
+    ``cfg.num_layers`` of ``full_layers``), its weights from a seeded CUDA
+    generator rescaled to each layer's own init scale (``layer_scale_``),
+    its inputs tokens or embedding rows (``serving_inputs``): two serving
+    runs bit for bit (decode logits, inputs fed, greedy tokens), every
+    attention call "cuda" at one launch a layer for the prefill and for
+    each decode step; the element count against ``param_defs()``; between
+    them the weights held bit for bit to the same draw made again
+    (``redraw_differences``: the second run serves on them, so the weights
+    are resident once), and where the model has an eager recurrence or
+    experts a prefill with the recurrences timed (``recurrence_spans``)
+    and the MoE drops counted (``route_record``); one decode step of the
+    second run profiled; decode against one full pass
+    (``lm_decode_against_full`` within ``MIXER_RMS_SHARE``, with the ring
+    slots and ``DECODE_FAULTS`` where the model has attention layers;
+    ``mixer_moe_decode_check`` for the MoE models, ``first_reroutes``
+    passed on; ``xlstm_decode_bracket`` for xlstm-125m). Returns the
+    readings."""
+    import torch
+
     from repro_torch.distributed import param_shapes
     from repro_torch.models.registry import make_lm_model
     from repro_torch.tree import tree_leaves
 
     name, gen = cfg.name, MIXER_GEN
     model = make_lm_model(cfg)
-    attn = sum(cfg.mixer_for_layer(i) == MIXER_ATTENTION
-               for i in range(cfg.num_layers))
-    prompts = torch.from_numpy(TokenPipeline(
-        cfg.vocab_size, prompt, batch, seed=0).batch(0)["inputs"]).to(
-            model.device)
-
-    def fresh():
-        return model.init(torch.Generator(device="cuda").manual_seed(0))
+    attn = attention_layers(cfg)
+    eager = attn < cfg.num_layers or cfg.num_experts
+    prompts, rows = serving_inputs(cfg, batch, prompt, gen, model.device)
 
     def timed_prefill(params, spans, routes):
         """Prefill ms with the recurrences timed and the routing recorded."""
@@ -3134,14 +3498,22 @@ def mixer_serving(cfg, full_layers: int, batch: int, prompt: int) -> dict:
         return (time.perf_counter() - t0) * 1e3
 
     torch.cuda.reset_peak_memory_stats()
-    first = lm_serve(model, prompts, gen,
-                     params=layer_scale_(model, fresh()))
+    first = lm_serve(model, prompts, gen, params=layer_scale_(
+        model, model.init(torch.Generator(device="cuda").manual_seed(0))),
+        rows=rows)
     peak = torch.cuda.max_memory_allocated()
     n = sum(p.numel() for p in tree_leaves(first["params"]))
     want = sum(m.numel() for m in tree_leaves(param_shapes(
         model.param_defs())))
     if n != want:
         raise AssertionError(f"{name}: {n} parameters, param_defs() {want}")
+    heads = cfg.num_output_heads
+    shape = (batch, gen) + ((heads,) if heads > 1 else ()) + (
+        cfg.vocab_size,)
+    if tuple(first["logits"].shape) != shape:
+        raise AssertionError(f"{name}: decode logits "
+                             f"{tuple(first['logits'].shape)}, expected "
+                             f"{shape}")
     stats = {"cuda": attn * (1 + gen)} if attn else None
     if (first["per_prefill"] != attn or first["per_step"] != [attn] * gen
             or first["stats"] != stats):
@@ -3150,14 +3522,18 @@ def mixer_serving(cfg, full_layers: int, batch: int, prompt: int) -> dict:
             f"{first['per_step']} per decode step, kernel_stats "
             f"{first['stats']}; expected {attn} each, all cuda")
     spans, routes = {}, []
-    instrumented_ms = timed_prefill(first["params"], spans, routes)
+    instrumented_ms = (timed_prefill(first["params"], spans, routes)
+                       if eager else None)
+    torch.cuda.empty_cache()
+    redrawn = redraw_differences(model, first["params"])
+    if redrawn:
+        raise AssertionError(f"{name}: leaves {redrawn} differ from the "
+                             "same draw made again")
+    torch.cuda.empty_cache()
     second = lm_serve(model, prompts, gen, profile_step=gen - 1,
-                      params=layer_scale_(model, fresh()))
-    differ = [key for key in ("logits", "fed")
+                      params=first["params"], rows=rows)
+    differ = [key for key in ("logits", "fed", "greedy")
               if not same_bits(first[key], second[key])]
-    differ += [f"param {i}" for i, (a, b) in enumerate(zip(
-        tree_leaves(first["params"]), tree_leaves(second["params"])))
-        if not same_bits(a, b)]
     if differ:
         raise AssertionError(f"{name}: two serving runs differ in {differ}")
     recur = {label: sum(a.elapsed_time(b) for a, b in pairs)
@@ -3177,25 +3553,31 @@ def mixer_serving(cfg, full_layers: int, batch: int, prompt: int) -> dict:
            "decode_step_profile": {"wall_ms": wall_ms,
                                    "device_busy_ms": busy_ms},
            "recurrences_ms": recur, "recurrence_calls": calls,
-           "recurrence_share": sum(recur.values()) / instrumented_ms,
+           "recurrence_share": (sum(recur.values()) / instrumented_ms
+                                if eager else 0.0),
            "launches": {"prefill": first["per_prefill"],
                         "decode_steps": first["per_step"]}}
     if cfg.num_experts:
         out["dropped_shares"] = drop_shares(routes)
-    log("mixers", f"{name} bf16, {cfg.num_layers} of {full_layers} layers: "
+    inputs = ("tokens" if rows is None
+              else f"embedding rows of {cfg.d_model}")
+    log(tag, f"{name} bf16, {cfg.num_layers} of {full_layers} layers: "
         f"{n:,} parameters (= param_defs(); param_count() "
-        f"{cfg.param_count():,}); prefill {batch} x {prompt} tokens "
+        f"{cfg.param_count():,}); prefill {batch} x {prompt} {inputs} "
         f"{first['prefill_s'] * 1e3:.1f} ms, {gen} decode steps "
         f"{first['decode_s'] * 1e3:.1f} ms ({out['decode_tok_per_s'][0]:.1f}"
         f" tok/s; {out['issue_share'][0]:.1%} issuing on the host), peak "
         f"{peak / 2**30:.2f} GiB; {attn} attention launches a prefill and a "
-        f"decode step, all cuda")
-    log("mixers", f"{name}: a second run from the same seed bit for bit "
-        f"(weights, {gen} decode logits, tokens); a prefill with the "
-        f"recurrences timed between CUDA events {instrumented_ms:.1f} ms: "
-        + (", ".join(f"{label} {ms:.1f} ms ({calls[label]} calls)"
-                     for label, ms in recur.items()) or "none")
-        + f" = {out['recurrence_share']:.1%} of it; decode step at t = "
+        f"decode step, all cuda; logits {list(shape)}")
+    log(tag, f"{name}: the weights equal the same draw made again, and a "
+        f"second run on them bit for bit ({gen} decode logits, inputs fed, "
+        "greedy tokens); "
+        + (f"a prefill with the recurrences timed between CUDA events "
+           f"{instrumented_ms:.1f} ms: "
+           + (", ".join(f"{label} {ms:.1f} ms ({calls[label]} calls)"
+                        for label, ms in recur.items()) or "none")
+           + f" = {out['recurrence_share']:.1%} of it; " if eager else "")
+        + f"decode step at t = "
         f"{prompt + gen - 1} under the profiler {wall_ms:.2f} ms host wall, "
         f"device busy "
         f"{'not measured' if busy_ms is None else f'{busy_ms:.3f} ms'}"
@@ -3207,87 +3589,161 @@ def mixer_serving(cfg, full_layers: int, batch: int, prompt: int) -> dict:
     torch.cuda.empty_cache()
     if not cfg.num_experts:
         out["decode_vs_full"] = lm_decode_against_full(
-            model, first["params"], prompts, first, MIXER_RMS_SHARE)
-        log("mixers", "{name}: decode against one full pass over {p} "
-            "tokens at positions {positions}: RMS share {rms_share:.4g} "
+            model, first["params"], prompts, first, MIXER_RMS_SHARE, tag)
+        log(tag, "{name}: decode against one full pass over {p} "
+            "positions at {positions}: RMS share {rms_share:.4g} "
             "(limit {lim:.4g}), max abs err {max_abs_err:.4g}, argmax "
-            "differs at {argmax_differ} of {tokens} (near ties; "
-            "{argmax_differ_clear} clear)".format(
+            "differs at {argmax_differ} of {n} (near ties; "
+            "{argmax_differ_clear} clear){ring_text}".format(
                 name=name, p=prompt + gen, lim=MIXER_RMS_SHARE,
-                **out["decode_vs_full"]))
+                n=first["greedy"].numel(),
+                ring_text="" if not attn else
+                "; ring slots of the {slots} decoded positions in {layers} "
+                "attention layers: RMS share {share:.4g}, positions "
+                "{eq}".format(
+                    slots=gen, layers=out["decode_vs_full"]["ring"][
+                        "attention_layers"],
+                    share=out["decode_vs_full"]["ring"]["rms_share"],
+                    eq="equal" if out["decode_vs_full"]["ring"][
+                        "positions_equal"] else "differ"),
+                **{k: v for k, v in out["decode_vs_full"].items()
+                   if k not in ("ring", "faults")}))
         if cfg.slstm_at:
             out["decode_bracket"] = xlstm_decode_bracket(
                 model, first["params"], prompts, first["fed"])
         return out
+    del first["caches"]
     out["decode_vs_full"] = mixer_moe_decode_check(
-        cfg, first["params"], prompts, gen)
+        cfg, first["params"], prompts, gen, rows=rows, tag=tag,
+        first_reroutes=first_reroutes)
     return out
 
 
-def mixer_moe_decode_check(cfg, params, prompts, gen: int) -> dict:
-    """Phase 14's decode check of an MoE model: at a capacity factor of
-    e / k (no token can drop) a serving run on ``params`` and one full
-    pass over its tokens, both with their routing recorded. Where decode
-    and the full pass route a token to the same experts in every layer,
-    its logits are held within ``MIXER_RMS_SHARE`` (greedy tokens equal but
-    near ties); a token that either routed elsewhere must sit where the
-    full pass's k-th and (k+1)-th router probabilities are within
-    ``ROUTE_TIE`` of each other. Returns the readings."""
+def mixer_moe_decode_check(cfg, params, prompts, gen: int, rows=None,
+                           tag: str = "mixers",
+                           first_reroutes: bool = False) -> dict:
+    """Phase 14's (and 19's) decode check of an MoE model: at a capacity
+    factor of e / k (no token can drop) a serving run on ``params`` and
+    one full pass over its inputs, both with their routing recorded
+    (``reroutes``, each flip logged). Where decode and the full pass route
+    a token to the same experts in every layer, its logits and, where the
+    model has attention layers, its ring slots are held within
+    ``MIXER_RMS_SHARE`` (greedy tokens equal but near ties); a flip must
+    sit where the full pass's k-th and (k+1)-th router probabilities are
+    within ``ROUTE_TIE`` of each other: every flip, or with
+    ``first_reroutes`` only each token's first, in layer order (phase 19:
+    on an H100 mixtral-8x22b flipped a token at a gap of 0.081 in a layer
+    after its first flip at 0.003). ``decode_fault_bracket`` runs on the
+    same model where it has attention layers. Returns the readings."""
     import dataclasses
 
     from repro_torch.models.registry import make_lm_model
 
     model = make_lm_model(dataclasses.replace(
         cfg, capacity_factor=cfg.num_experts / cfg.top_k))
-    s = prompts.shape[1]
+    s, limit = prompts.shape[1], MIXER_RMS_SHARE
+    ring = attention_layers(cfg) > 0
     decoded, full_routes = [], []
     with route_record(decoded):
-        run = lm_serve(model, prompts, gen, params=params)
+        run = lm_serve(model, prompts, gen, params=params, rows=rows)
+    caches = model.init_caches(prompts.shape[0], s + gen) if ring else None
     with route_record(full_routes):
-        full, launches = full_pass_logits(model, params, prompts, run["fed"])
-    flips, count, gap = route_flips(decoded, full_routes, s, gen, cfg.top_k)
+        full, launches = full_pass_logits(model, params, prompts, run["fed"],
+                                          caches)
+    flips, each = reroutes(decoded, full_routes, s, gen, cfg.top_k)
+    gaps = {"first": max((g for *_, g, first in each if first),
+                         default=0.0),
+            "any": max((g for *_, g, _ in each), default=0.0)}
+    gap = gaps["first" if first_reroutes else "any"]
     held = decode_readings(run["logits"], full, ~flips)
     whole = decode_readings(run["logits"], full)
     out = {**held, "all_tokens": whole, "rerouted_tokens": int(flips.sum()),
-           "rerouted_token_layers": count, "largest_gap_at_reroute": gap,
+           "rerouted_token_layers": len(each),
+           "reroutes": [dict(zip(("sequence", "step", "layer", "gap",
+                                  "first"), r)) for r in each],
+           "largest_gap_at_first_reroute": gaps["first"],
+           "largest_gap_at_any_reroute": gaps["any"],
+           "held_reroutes": "first" if first_reroutes else "any",
            "full_pass_launches": launches, "positions": [s, s + gen - 1]}
-    log("mixers", "{name}: decode against one full pass over {p} tokens at "
+    if ring:
+        out["ring"] = ring_readings(run["caches"], caches, s, gen, ~flips)
+    log(tag, "{name}: decode against one full pass over {p} tokens at "
         "positions {positions}, capacity factor {cf:g}: {rerouted_tokens} of "
         "{n} tokens routed to other experts ({rerouted_token_layers} (token, "
-        "layer) pairs; the full pass's largest gap p_k - p_(k+1) there "
-        "{largest_gap_at_reroute:.3g}, limit {tie:.3g}); over the other "
-        "{tokens}: RMS share {rms_share:.4g} (limit {lim:.4g}), max abs err "
-        "{max_abs_err:.4g}, argmax differs at {argmax_differ} (near ties; "
-        "{argmax_differ_clear} clear); over all: RMS share {all_share:.4g}, "
-        "argmax differs at {all_differ}".format(
+        "layer) pairs; the full pass's largest gap p_k - p_(k+1) at a "
+        "token's first reroute {largest_gap_at_first_reroute:.3g}, at any "
+        "{largest_gap_at_any_reroute:.3g}; limit {tie:.3g} at {which}); "
+        "over the other {tokens}: RMS share {rms_share:.4g} (limit "
+        "{lim:.4g}), max abs err {max_abs_err:.4g}, argmax differs at "
+        "{argmax_differ} (near ties; {argmax_differ_clear} clear)"
+        "{ring_text}; over all: RMS share {all_share:.4g}, argmax differs "
+        "at {all_differ}".format(
             name=cfg.name, p=s + gen, cf=model.cfg.capacity_factor,
-            n=flips.numel(), tie=ROUTE_TIE, lim=MIXER_RMS_SHARE,
+            n=flips.numel(), tie=ROUTE_TIE, lim=limit,
+            which="each token's first" if first_reroutes else "every one",
             all_share=whole["rms_share"], all_differ=whole["argmax_differ"],
-            **out))
-    if (not held["rms_share"] <= MIXER_RMS_SHARE
+            ring_text="" if not ring else
+            ", their ring slots RMS share {:.4g}, positions {}".format(
+                out["ring"]["rms_share"],
+                "equal" if out["ring"]["positions_equal"] else "differ"),
+            **{k: v for k, v in out.items() if k != "ring"}))
+    if each:
+        log(tag, f"{cfg.name}: reroutes (sequence, step): layer, gap, "
+            "first or later: " + "; ".join(
+                f"({b}, {step}): layer {layer}, {g:.3g}, "
+                f"{'first' if first else 'later'}"
+                for b, step, layer, g, first in each))
+    if (not held["rms_share"] <= limit
             or held["argmax_differ_clear"] or not whole["finite"]
-            or not gap <= ROUTE_TIE):
+            or not gap <= ROUTE_TIE
+            or (ring and not ring_within(out["ring"], limit))):
         raise AssertionError(f"{cfg.name}: decode against the full pass: "
-                             f"{out} (limits: RMS share {MIXER_RMS_SHARE} "
+                             f"{out} (limits: RMS share {limit} "
                              f"where routed alike, no clear argmax change, "
-                             f"reroutes only within {ROUTE_TIE} of a tie)")
+                             f"reroutes ({out['held_reroutes']}) only within "
+                             f"{ROUTE_TIE} of a tie)")
+    if ring:
+        fed = run.pop("fed")
+        del run
+        out["faults"] = decode_fault_bracket(model, params, prompts, fed,
+                                             full, caches, limit, tag)
     return out
 
 
-def mixer_gradients() -> dict:
-    """Phase 14: the reduced mixtral-8x7b, jamba-v0.1-52b and xlstm-125m
-    (fp32, ``layer_scale_``d weights from a CPU generator, one
-    ``TokenPipeline`` batch of 2 x 32) once on the card and once on the
-    CPU port: the card's loss and metrics within ``LM_RTOL`` and every
-    gradient within ``LM_GRAD_RTOL`` of the CPU's (an sLSTM's input-gate
-    bias, on which the loss does not depend, against its gate's weight
-    gradient, as ``tests/_torch_lm.py::grads_close``). Returns the largest
-    shares of the limits."""
+def lm_batch(cfg, b: int = 2, s: int = 32) -> dict:
+    """One batch of numpy inputs and labels: a ``TokenPipeline`` batch
+    (seed 0) for a token model; for a model whose input is embeddings,
+    N(0, 1) rows [b, s, D] and a label per output head ([b, s] or [b, s,
+    nH]) from ``np.random.default_rng(0)``, as ``tests/_torch_lm.py``'s
+    ``batch`` makes them."""
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenPipeline
+
+    if cfg.input_mode != "embeddings":
+        return TokenPipeline(cfg.vocab_size, s, b, seed=0).batch(0)
+    rng = np.random.default_rng(0)
+    heads = cfg.num_output_heads
+    return {"inputs": rng.normal(size=(b, s, cfg.d_model)).astype(
+                np.float32),
+            "labels": rng.integers(0, cfg.vocab_size, (b, s) + (
+                (heads,) if heads > 1 else ())).astype(np.int32)}
+
+
+def mixer_gradients(archs=("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m"),
+                    tag: str = "mixers") -> dict:
+    """Phases 14 and 19: the reduced ``archs`` (fp32, ``layer_scale_``d
+    weights from a CPU generator, one batch of 2 x 32, ``lm_batch``) once
+    on the card and once on the CPU port: the card's loss and metrics
+    within ``LM_RTOL`` and every gradient within ``LM_GRAD_RTOL`` of the
+    CPU's (an sLSTM's input-gate bias, on which the loss does not depend,
+    against its gate's weight gradient, as
+    ``tests/_torch_lm.py::grads_close``). Returns the largest shares of
+    the limits."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import MIXER_ATTENTION
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.models.registry import make_lm_model
     from repro_torch.tree import tree_leaves, tree_map
@@ -3322,13 +3778,12 @@ def mixer_gradients() -> dict:
                                  err / limit).max())
 
     out = {}
-    for arch in ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-125m"):
+    for arch in archs:
         cfg = get_arch(arch).reduced()
         cpu, card = make_lm_model(cfg, "cpu"), make_lm_model(cfg)
         params = layer_scale_(cpu, cpu.init(
             torch.Generator().manual_seed(0)))
-        data = {k: torch.from_numpy(v) for k, v in TokenPipeline(
-            cfg.vocab_size, 32, 2, seed=0).batch(0).items()}
+        data = {k: torch.from_numpy(v) for k, v in lm_batch(cfg).items()}
         want_m, want_g = value_and_grad(cpu, params, data)
         ops.reset_kernel_stats()
         got_m, got_g = value_and_grad(
@@ -3355,7 +3810,7 @@ def mixer_gradients() -> dict:
             raise AssertionError(f"{arch} reduced: the card's loss and "
                                  f"gradients against the CPU port's, shares "
                                  f"of the limits: {worst}")
-        log("mixers", f"{arch} reduced, fp32 on the card against the CPU "
+        log(tag, f"{arch} reduced, fp32 on the card against the CPU "
             f"port: loss {float(got_m['loss']):.6f} / "
             f"{float(want_m['loss']):.6f}, aux {float(got_m['aux']):.6g}; "
             f"largest shares of the limits (RTOL {LM_RTOL}, gradients "
@@ -4463,6 +4918,79 @@ def experiments_phase(dev="cuda") -> dict:
     return out
 
 
+def arch_drivers() -> dict:
+    """Phase 19: ``launch/serve.py`` at full width for ``ARCH_DRIVERS``
+    (fp32, ``ARCH_DRIVER_ARGS``: batch 4, prompt 512 embedding rows, 32
+    tokens; no mesh): every attention launch "cuda", one a layer for the
+    prefill and each of the 31 decode steps; prefill ms, decode tok/s,
+    peak memory."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import mx_quantize as mxq
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+
+    out = {}
+    for arch in ARCH_DRIVERS:
+        layers = get_arch(arch).num_layers
+        mxq.reset_launch_counts()
+        ops.reset_kernel_stats()
+        res = serve_lib.serve(["--arch", arch] + ARCH_DRIVER_ARGS,
+                              on_mesh=False)
+        launches = mxq.launch_counts()["flash_attention"]
+        if (launches != layers * DRIVER_GEN
+                or ops.kernel_stats().get("flash_attention") != {
+                    "cuda": launches}
+                or res["tokens"].shape != (DRIVER_BATCH, DRIVER_GEN)
+                or not bool(torch.isfinite(res["logits"]).all())):
+            raise AssertionError(
+                f"{arch} serve driver: {launches} attention launches, "
+                f"{ops.kernel_stats()}, tokens {res['tokens'].shape}; "
+                f"expected {layers * DRIVER_GEN}, all cuda, finite logits")
+        out[arch] = {k: res[k] for k in ("prefill_s", "decode_s",
+                                         "decode_tok_per_s", "peak_bytes")}
+        out[arch]["launches"] = launches
+        log("archs", f"{arch} serve driver (fp32, batch {DRIVER_BATCH}, "
+            f"prompt {DRIVER_PROMPT} embedding rows, {DRIVER_GEN} tokens): "
+            f"prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{res['decode_tok_per_s']:.1f} tok/s, peak "
+            f"{res['peak_bytes'] / 2**30:.2f} GiB, {launches} attention "
+            "launches, all cuda")
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def archs_phase() -> dict:
+    """Phase 19: the six LM archs that no earlier phase runs, on the card
+    at published width (``ARCH_MODELS``, ``mixer_serving`` with the ring
+    check and ``DECODE_FAULTS`` planted, within ``MIXER_RMS_SHARE``, which
+    equals ``LM_RMS_SHARE``; an MoE reroute held to ``ROUTE_TIE`` only
+    at a token's first), the
+    serve driver on the two whose input is embeddings
+    (``arch_drivers``), and their reduced configs' loss and gradients on
+    the card against the CPU port (``mixer_gradients``). Returns the
+    readings."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for arch, layers, batch, prompt in ARCH_MODELS:
+        full = get_arch(arch)
+        out[arch] = mixer_serving(
+            dataclasses.replace(full, num_layers=layers), full.num_layers,
+            batch, prompt, tag="archs", first_reroutes=True)
+        torch.cuda.empty_cache()
+    out["drivers"] = arch_drivers()
+    out["gradients"] = mixer_gradients(tuple(a for a, *_ in ARCH_MODELS),
+                                       tag="archs")
+    return out
+
+
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/mx_gemm.cu"
 GEMM_REPLACES = {  # the Pallas kernel each GEMM kernel replaces
     "mx_matmul": "src/repro/kernels/mx_matmul.py:76",
@@ -5102,6 +5630,13 @@ def main() -> None:
                                    "quickstart")}, default=float),
         flush=True)
 
+    # ------------------------------------------------------------ 19 archs
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    archs = archs_phase()
+    log("archs", f"phase done in {time.perf_counter() - t0:.2f} s")
+    print("[archs] summary " + json.dumps(archs, default=float), flush=True)
+
     def launches_experiments(op: str) -> dict:
         return {part: counts.get(op, 0)
                 for part, counts in exp["launches"].items()}
@@ -5168,6 +5703,10 @@ def main() -> None:
         "launches_mixer_ranks": ranks["launches"],
         "launches_dryrun": dry["launches"],
         "launches_experiments": launches_experiments("flash_attention"),
+        "launches_archs": {
+            **{arch: archs[arch]["launches"] for arch, *_ in ARCH_MODELS},
+            **{f"{arch} serve driver": archs["drivers"][arch]["launches"]
+               for arch in ARCH_DRIVERS}},
         "lse_max_abs_err": max(row["lse_max_abs_err"] for row in
                                attention_rows
                                if row["lse_max_abs_err"] is not None),
