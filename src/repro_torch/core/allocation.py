@@ -87,6 +87,11 @@ class AllocationDecision:
         """Lift into the two-plane API: (SpatialPlan, TemporalPlan)."""
         return Decision.from_legacy(self)
 
+    @classmethod
+    def from_decision(cls, decision: Decision) -> "AllocationDecision":
+        """Flatten a two-plane decision back into the legacy layout."""
+        return decision.to_legacy()
+
 
 @dataclasses.dataclass(frozen=True)
 class PhaseFeedback:

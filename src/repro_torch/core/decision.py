@@ -36,6 +36,10 @@ from typing import Dict, Optional, Sequence, Tuple, Type
 
 from repro_torch.core.mx import DEFAULT_POLICY, PrecisionPolicy
 
+ROLE_TSA = "t_sa"
+ROLE_BSA = "b_sa"
+
+
 @dataclasses.dataclass(frozen=True)
 class SpatialPlan:
     """The *where* of one phase: rows, precisions, re-fission intent.
@@ -58,6 +62,9 @@ class SpatialPlan:
         r_bsa = self.rows_bsa if self.rows_bsa is not None else default_bsa
         return dataclasses.replace(self, rows_tsa=(r_tsa or total_rows),
                                    rows_bsa=(r_bsa or total_rows))
+
+    def rows_for(self, role: str) -> Optional[int]:
+        return self.rows_bsa if role == ROLE_BSA else self.rows_tsa
 
 
 @dataclasses.dataclass(frozen=True)

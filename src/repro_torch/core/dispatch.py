@@ -290,6 +290,7 @@ class KernelDispatcher:
         return self.mode == CONCURRENT
 
     def begin_phase(self, start: float, pipeline=None,
+                    label_hints: Optional[Sequence] = None,
                     decisions: Optional[Sequence] = None,
                     fps: Optional[float] = None) -> PhasePlan:
         """Open a phase plan. ``pipeline`` is a FramePipeline or a sequence
@@ -297,13 +298,19 @@ class KernelDispatcher:
         pipeline's speculation onto this phase start. ``decisions`` (one
         two-plane Decision per lane) is the phase's intent: with a stream
         ``fps``, each lane's label hint — the decision-aware speculation
-        signal — derives from its temporal plane's labeling budget."""
+        signal — derives from its temporal plane's labeling budget.
+        ``label_hints`` (one ``(n_samples, fps)`` per lane, or None
+        entries) is the pre-plane spelling of the same signal; when given
+        it wins over the hints ``decisions`` would give."""
         pipelines = _as_pipelines(pipeline)
         decisions = tuple(decisions) if decisions is not None else ()
+        if label_hints is None:
+            label_hints = [
+                (None if d is None or fps is None
+                 else (d.temporal.total_label_samples, fps))
+                for d in decisions]
         for i, pipe in enumerate(pipelines):
-            d = decisions[i] if i < len(decisions) else None
-            hint = (None if d is None or fps is None
-                    else (d.temporal.total_label_samples, fps))
+            hint = label_hints[i] if i < len(label_hints) else None
             pipe.begin_phase(start, label_hint=hint)
         plan = _TrackedPlan(self, self.mode, start, pipelines)
         plan.decisions = decisions

@@ -52,6 +52,8 @@ from repro_torch.distributed import (
     init_placed,
     is_dtensor,
     local_range,
+    param_shapes,
+    param_specs,
     stack_defs,
 )
 from repro_torch.models import attention as attn
@@ -223,6 +225,13 @@ class LMModel:
         a CUDA generator makes a full-width init on the card), placed on
         the model's device."""
         return init_params(self.param_defs(), gen, self.device)
+
+    def param_shapes(self):
+        """The tree of meta tensors: each leaf's shape and dtype."""
+        return param_shapes(self.param_defs())
+
+    def param_specs(self):
+        return param_specs(self.param_defs())
 
     # ----------------------------------------------------------------- embeds
     def _as_tensor(self, x) -> torch.Tensor:

@@ -49,6 +49,9 @@ def test_no_jax_or_reference_import(path):
 
 def test_session_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch.core, chip_smoke; "
+            "from repro_torch.data import (DriftStream, FramePipeline, "
+            "PrefetchingWindowIterator, SCENARIOS, Segment, "
+            "SpeculationStats, TokenPipeline, scenario); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     proc = subprocess.run(

@@ -36,6 +36,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import resnet as tresnet
 from repro_torch.models.transformer import LMModel
 from repro_torch.runtime.elastic import NamedSharding as TNamedSharding
+from repro_torch.tree import tree_leaves
 from repro_torch.training import train_state as ttrain_state
 
 from _torch_lm import ARCH_NAMES, RTOL, close, one_torch_thread  # noqa: F401
@@ -143,6 +144,25 @@ def test_param_defs_roundtrip():
     stacked = tdist.stack_defs([defs, defs])
     assert stacked["w"].shape == (2, 8, 16)
     assert stacked["w"].logical == ("layers", "embed", "ff")
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_lm_model_param_shapes_and_specs(name):
+    """``LMModel.param_shapes()`` and ``param_specs()`` at full width (meta
+    tensors, nothing allocated): the reference's stand-ins leaf for leaf,
+    shape and dtype, and its specs under the one-pod mesh's train rules."""
+    jm, tm = meshes("one pod")
+    jrules, rules = _rules(name, "train_4k")
+    jmodel = jtransformer.LMModel(jax_configs.get_arch(name))
+    model = LMModel(port_configs.get_arch(name), "cpu")
+    shapes = model.param_shapes()
+    assert {m.device.type for m in tree_leaves(shapes)} == {"meta"}
+    assert norm(shapes) == norm(jmodel.param_shapes())
+    with jdist.use_rules(jrules, jm):
+        want = jmodel.param_specs()
+    with tdist.use_rules(rules, tm):
+        got = model.param_specs()
+    assert norm(got) == norm(want)
 
 
 def test_expert_fission_divisibility():
